@@ -1,0 +1,640 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch/CUDA port starts and is right on a GPU.
+
+    python3 chip_smoke.py            # every phase; needs one CUDA device
+
+Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), holds
+each against its plain PyTorch version on the card, then serves
+granite-3-2b (full width, all 40 layers, bf16, random weights from seed 0)
+through `repro_torch.serve.ServeEngine`, and checks that the serving path
+really went through the kernels, that the kernels' path agrees with the
+plain path, and that a live KV-cache slot moved to another engine goes on
+decoding bit-identically.  Prints one JSON object a line; the last line is
+``{"ok": true, "device": {...}}``.  Exits non-zero, without that line, when
+there is no CUDA device or any phase fails: nothing is retried on the CPU.
+
+``--only build,kernels`` runs some phases alone (then no final line);
+``--verbose-build`` prints the compiler's messages.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+PHASES = ("build", "kernels", "serve", "timing", "path_vs_plain", "migrate")
+
+# Published peaks of one H100 SXM (dense): device memory and arithmetic.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+TOL = {"float32": dict(atol=2e-5, rtol=2e-5), "bfloat16": dict(atol=5e-2, rtol=5e-2)}
+
+GRANITE_SLOTS, GRANITE_MAX_LEN = 8, 4096
+
+
+def emit(**obj):
+    print(json.dumps(obj), flush=True)
+
+
+class Failed(Exception):
+    pass
+
+
+def require(cond, what):
+    if not cond:
+        raise Failed(what)
+
+
+# --------------------------------------------------------------- helpers --
+def errors(torch, got, want, dtype_name):
+    """(max abs error, max of error over its allowance) in fp32."""
+    tol = TOL[dtype_name]
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    allowed = tol["atol"] + tol["rtol"] * w.abs()
+    return float(err.max()), float((err / allowed).max())
+
+
+def time_ms(torch, fn, iters=50, warmup=5):
+    """Mean milliseconds of one call, by CUDA events around ``iters`` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+class DeviceTimer:
+    """Device time of a call, apart from the host's time to launch it.
+
+    A run of large matrix products is queued first, so that the card is
+    busy while the host queues ``iters`` calls between two events; the
+    card then runs them back to back and the events' distance is their
+    device time alone.  Valid only if the host was done queueing before the
+    card got to the first event, which is checked rather than assumed: on a
+    miss the run is repeated with fewer calls (the launch queue holds about
+    a thousand, and a plain version is several launches a call) behind a
+    longer run of products."""
+
+    def __init__(self, torch, device):
+        self.torch = torch
+        self.a = torch.randn(8192, 8192, device=device, dtype=torch.bfloat16)
+        self.matmul_ms = time_ms(torch, lambda: self.a @ self.a, iters=5, warmup=2)
+
+    def __call__(self, fn, iters=50):
+        """(device ms a call, host-inclusive ms a call in a tight loop)."""
+        torch = self.torch
+        call_ms = time_ms(torch, fn, iters=iters)
+        for attempt in range(6):
+            busy_ms = (2.0 + attempt) * call_ms * iters + 10.0
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            for _ in range(int(busy_ms / self.matmul_ms) + 1):
+                self.a @ self.a
+            start.record()
+            for _ in range(iters):
+                fn()
+            stop.record()
+            queued_in_time = not start.query()   # the card has not reached it yet
+            torch.cuda.synchronize()
+            if queued_in_time:
+                return start.elapsed_time(stop) / iters, call_ms
+            iters = max(5, iters // 2)
+        raise Failed("DeviceTimer: the host never got ahead of the card")
+
+
+def profile_device_time(torch, fn, iters):
+    """(device ms a call, the ten kernels that take most of it) from
+    `torch.profiler`; (None, []) if the trace shows no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:     # host-side op rows repeat their kernels' time
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append((us, e.count, e.key))
+    if not rows:
+        return None, []
+    rows.sort(reverse=True)
+    top = [dict(kernel=key[:72], ms_a_call=us / iters / 1e3, launches_a_call=n / iters)
+           for us, n, key in rows[:10]]
+    return sum(us for us, _, _ in rows) / iters / 1e3, top
+
+
+def bound(nbytes, flops, dtype_name):
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def rand(torch, shape, dtype, seed, device):
+    g = torch.Generator(device).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=device, dtype=torch.float32).to(dtype)
+
+
+# ---------------------------------------------------------------- phases --
+def phase_device(torch):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    require(smi, "nvidia-smi gave no card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    emit(phase="device", nvidia_smi=smi[0], torch=torch.__version__,
+         cuda=torch.version.cuda, allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+         python=sys.version.split()[0])
+    return smi[0]
+
+
+def phase_build(verbose):
+    from repro_torch.kernels import _build
+    built_now = not _build.library_path().exists()
+    t0 = time.perf_counter()
+    _build.library()
+    emit(phase="build", seconds=round(time.perf_counter() - t0, 3), built_now=built_now,
+         sources=[p.name for p in _build.sources()], library=_build.library_path().name)
+    if verbose and built_now:
+        print((_build.build_dir() / "build.log").read_text(), flush=True)
+
+
+RMS_CASES = [((8, 1, 2048), "bfloat16"), ((300, 512), "float32"),
+             ((2, 37, 256), "bfloat16"), ((1, 5, 7, 64), "float32"),
+             ((4096, 2048), "bfloat16"), ((16, 8192), "bfloat16")]
+
+# (name, B, Sk, Hq, Hkv, D, dtype); kv_len is ragged, see ragged_lens
+DECODE_CASES = [
+    ("granite-3-2b", 8, 4096, 32, 8, 64, "bfloat16"),
+    ("qwen1.5-0.5b", 8, 4096, 16, 16, 64, "bfloat16"),
+    ("long", 4, 32768, 32, 8, 64, "bfloat16"),
+    ("mha-d32", 3, 384, 6, 6, 32, "float32"),
+    ("mqa-d128", 1, 200, 8, 1, 128, "float32"),
+    ("group6-d128", 2, 1000, 48, 8, 128, "bfloat16"),
+    ("group2-fp32", 2, 777, 4, 2, 64, "float32"),
+]
+
+
+def ragged_lens(torch, B, Sk, device):
+    """Per-row valid lengths that include 1 and Sk."""
+    lens = [1, Sk] + [max(1, (Sk * (3 * i + 1)) // (3 * B + 1)) for i in range(B)]
+    return torch.tensor(lens[:B] if B > 1 else [Sk - 7], dtype=torch.int32, device=device)
+
+
+def phase_kernels(torch, device):
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
+    from repro_torch.kernels.rmsnorm import rms_norm, rms_norm_plain
+
+    checks = []
+    for shape, dt in RMS_CASES:
+        dtype = getattr(torch, dt)
+        x = rand(torch, shape, dtype, 13, device) * 3.0
+        scale = rand(torch, shape[-1:], dtype, 14, device)
+        got = rms_norm(x, scale, 1e-5)
+        torch.cuda.synchronize()
+        err, ratio = errors(torch, got, rms_norm_plain(x, scale, 1e-5), dt)
+        checks.append(dict(kernel="rms_norm", shape=list(shape), dtype=dt,
+                           max_abs_err=err, err_over_tol=ratio, tol=TOL[dt]))
+        require(got.shape == x.shape and got.dtype == x.dtype, f"rms_norm {shape}: shape/dtype")
+        require(ratio <= 1.0, f"rms_norm {shape} {dt}: error {err} beyond tolerance")
+
+    for name, B, Sk, Hq, Hkv, D, dt in DECODE_CASES:
+        dtype = getattr(torch, dt)
+        q = rand(torch, (B, 1, Hq, D), dtype, 7, device)
+        k = rand(torch, (B, Sk, Hkv, D), dtype, 8, device)
+        v = rand(torch, (B, Sk, Hkv, D), dtype, 9, device)
+        lens = ragged_lens(torch, B, Sk, device)
+        got = decode_attention(q, k, v, lens)
+        torch.cuda.synchronize()
+        err, ratio = errors(torch, got, decode_attention_plain(q, k, v, lens), dt)
+        checks.append(dict(kernel="decode_attention", case=name, shape=[B, Sk, Hq, Hkv, D],
+                           dtype=dt, kv_len=lens.tolist(), max_abs_err=err,
+                           err_over_tol=ratio, tol=TOL[dt]))
+        require(ratio <= 1.0, f"decode_attention {name}: error {err} beyond tolerance")
+        del q, k, v
+
+    # Entries past kv_len must not touch the result: bit-equal.
+    dtype = torch.bfloat16
+    B, Sk, Hq, Hkv, D = 8, 4096, 32, 8, 64
+    q = rand(torch, (B, 1, Hq, D), dtype, 10, device)
+    k = rand(torch, (B, Sk, Hkv, D), dtype, 11, device)
+    v = rand(torch, (B, Sk, Hkv, D), dtype, 12, device)
+    lens = torch.tensor([1, 64, 65, 500, 513, 2048, 3000, 4095], dtype=torch.int32,
+                        device=device)
+    out1 = decode_attention(q, k, v, lens)
+    k2, v2 = k.clone(), v.clone()
+    for b in range(B):
+        k2[b, int(lens[b]):] = 999.0
+        v2[b, int(lens[b]):] = float("nan")
+    out2 = decode_attention(q, k2, v2, lens)
+    torch.cuda.synchronize()
+    require(torch.equal(out1, out2), "decode_attention: stale cache past kv_len leaked")
+    checks.append(dict(kernel="decode_attention", case="stale cache past kv_len",
+                       bit_equal=True))
+
+    # kv_len beyond the cache is clamped; kv_len == 0 gives zeros.
+    over = decode_attention(q, k, v, torch.full((B,), Sk + 5, dtype=torch.int32, device=device))
+    full = decode_attention(q, k, v, Sk)
+    zero = decode_attention(q, k, v, torch.zeros((B,), dtype=torch.int32, device=device))
+    torch.cuda.synchronize()
+    require(torch.equal(over, full), "decode_attention: kv_len > Sk is not clamped")
+    require(bool((zero == 0).all()), "decode_attention: kv_len == 0 is not zeros")
+    err, ratio = errors(torch, over, decode_attention_plain(q, k, v, Sk + 5), "bfloat16")
+    require(ratio <= 1.0, "decode_attention: kv_len > Sk disagrees with the plain version")
+    checks.append(dict(kernel="decode_attention", case="kv_len > Sk clamped, kv_len == 0 zeros",
+                       max_abs_err=err, bit_equal_to_full=True))
+
+    # A row's result does not depend on its neighbours or its slot.
+    perm = torch.tensor([3, 0, 7, 1, 6, 2, 5, 4], device=device)
+    out_p = decode_attention(q[perm].contiguous(), k[perm].contiguous(),
+                             v[perm].contiguous(), lens[perm].contiguous())
+    torch.cuda.synchronize()
+    require(torch.equal(out_p, out1[perm]), "decode_attention: result depends on the slot")
+    checks.append(dict(kernel="decode_attention", case="rows permuted", bit_equal=True))
+
+    # What the wrappers refuse.
+    for bad in (lambda: rms_norm(q.half(), q.half()[0, 0, 0], 1e-5),
+                lambda: decode_attention(q.double(), k.double(), v.double(), lens),
+                lambda: decode_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2),
+                                         v, lens)):
+        try:
+            bad()
+        except (TypeError, ValueError):
+            continue
+        raise Failed("a wrapper took an argument it should refuse")
+    emit(phase="kernels", checks=checks)
+
+
+def build_model(torch, cfg, device):
+    from repro_torch.models import DecoderLM
+    model = DecoderLM(cfg, generator=torch.Generator(device).manual_seed(0), device=device)
+    return model.params
+
+
+def draw_requests(n, vocab, seed=0):
+    import numpy as np
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(16, 65, size=n)
+    return [Request(i, rng.integers(1, vocab, size=int(lens[i])).tolist(), max_new_tokens=32)
+            for i in range(n)]
+
+
+def record_logits(torch, engine, keep):
+    """Wrap the engine's decode step: checks every step's logits for
+    non-finite values (on the device) and keeps them when ``keep``."""
+    state = {"finite": torch.ones((), dtype=torch.bool, device=engine.device), "logits": []}
+    inner = engine._decode
+
+    def decode(params, cache, tokens):
+        cache, logits = inner(params, cache, tokens)
+        state["finite"] &= torch.isfinite(logits).all()
+        if keep:
+            state["logits"].append(logits[:, 0].clone())
+        return cache, logits
+
+    engine._decode = decode
+    return state
+
+
+def phase_serve(torch, device):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.rmsnorm import rms_norm
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config("granite-3-2b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = build_model(torch, cfg, device)
+    engine = ServeEngine(cfg, params, batch_slots=GRANITE_SLOTS, max_len=GRANITE_MAX_LEN,
+                         eos_id=-1, temperature=0.0, device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state = record_logits(torch, engine, keep=False)
+    requests = draw_requests(24, cfg.vocab_size)
+    for r in requests:
+        engine.submit(r)
+
+    rms_norm.launches = 0
+    decode_attention.launches = 0
+    t0 = time.perf_counter()
+    finished = engine.run_until_done(max_steps=2000)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"rms_norm": rms_norm.launches, "decode_attention": decode_attention.launches}
+
+    steps = engine.steps
+    tokens = sum(len(r.output) for r in finished)
+    per_step = {"rms_norm": 2 * cfg.n_layers + 1, "decode_attention": cfg.n_layers}
+    require(len(finished) == 24 and all(r.done and len(r.output) == 32 for r in requests),
+            "serve: not every request finished with 32 tokens")
+    require(all(0 <= t < cfg.vocab_size for r in requests for t in r.output),
+            "serve: a token outside the vocabulary")
+    require(bool(state["finite"]), "serve: non-finite logits")
+    for name, n in per_step.items():
+        require(launches[name] == steps * n,
+                f"serve: {name} launched {launches[name]} times, expected {steps} * {n}")
+    n_params = sum(t.numel() for t in _leaves(params))
+
+    # How much of a step the card works: device time of the decode step (all
+    # 8 slots busy) against the host-inclusive time of the same call.
+    for r in draw_requests(GRANITE_SLOTS, cfg.vocab_size, seed=2):
+        engine.submit(r)
+    for _ in range(3):
+        engine.step()
+    tokens_in = torch.ones((GRANITE_SLOTS, 1), dtype=torch.int32, device=device)
+    scratch = {"cache": engine.cache}
+
+    def one_step():
+        scratch["cache"], _ = engine._decode(params, scratch["cache"], tokens_in)
+
+    step_call_ms = time_ms(torch, one_step, iters=3, warmup=1)
+    step_device_ms, top = profile_device_time(torch, one_step, iters=3)
+    emit(phase="serve", model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+         params=n_params, dtype=cfg.compute_dtype, slots=GRANITE_SLOTS,
+         max_len=GRANITE_MAX_LEN, requests=24, steps=steps, tokens_generated=tokens,
+         slot_tokens_processed=sum(len(r.prompt) + len(r.output) - 1 for r in requests),
+         seconds=seconds, generated_tokens_per_s=tokens / seconds,
+         ms_per_step=seconds / steps * 1e3, decode_step_device_ms=step_device_ms,
+         decode_step_call_ms=step_call_ms,
+         device_idle_share=(None if step_device_ms is None
+                            else 1.0 - step_device_ms / step_call_ms),
+         decode_step_top_kernels=top,
+         setup_seconds=setup_s, launches=launches,
+         launches_per_step=per_step,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         setup_peak_memory_bytes=setup_peak)
+    del engine, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _leaves(tree):
+    from repro_torch._tree import tree_leaves
+    return tree_leaves(tree)
+
+
+def phase_timing(torch, device, launches):
+    """Times of the two kernels at the serving path's shapes, beside their
+    plain versions, one library call each, and the card's bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
+    from repro_torch.kernels.rmsnorm import rms_norm, rms_norm_plain
+
+    out = []
+    dtype, dt = torch.bfloat16, "bfloat16"
+    timer = DeviceTimer(torch, device)
+    has_lib_norm = hasattr(F, "rms_norm")
+
+    def norm_times(x, scale):
+        """ms = device time a launch; call_ms = a call in a tight host loop."""
+        ms, call = timer(lambda: rms_norm(x, scale, 1e-5), iters=200)
+        plain, plain_call = timer(lambda: rms_norm_plain(x, scale, 1e-5), iters=200)
+        lib, lib_call = (timer(lambda: F.rms_norm(x, x.shape[-1:], scale, 1e-5), iters=200)
+                         if has_lib_norm else (None, None))
+        ms2, call2 = timer(lambda: rms_norm(x, scale, 1e-5), iters=200)
+        nbytes = 2 * x.numel() * 2 + scale.numel() * 2
+        b_ms, b_by = bound(nbytes, 4 * x.numel(), "float32")   # fp32 math, no tensor cores
+        return dict(ms=min(ms, ms2), plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib, call_ms=min(call, call2), plain_call_ms=plain_call,
+                    library_call_ms=lib_call, shape=list(x.shape), bytes=nbytes)
+
+    # rms_norm: the decode step's (slots, 1, d_model).
+    x = rand(torch, (GRANITE_SLOTS, 1, 2048), dtype, 1, device)
+    scale = rand(torch, (2048,), dtype, 2, device)
+    got = rms_norm(x, scale, 1e-5)
+    err, ratio = errors(torch, got, rms_norm_plain(x, scale, 1e-5), dt)
+    require(ratio <= 1.0, f"timing: rms_norm error {err} beyond tolerance")
+    out.append(dict(name="rms_norm", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
+                    replaces="src/repro/kernels/rmsnorm.py:24", launches=launches["rms_norm"],
+                    max_abs_err=err, tol=TOL[dt], **norm_times(x, scale),
+                    library="torch.nn.functional.rms_norm", dtype=dt))
+    # The same kernel where bytes, not the launch, set the time.
+    out[-1]["large"] = norm_times(rand(torch, (16384, 2048), dtype, 3, device), scale)
+
+    # decode_attention: granite's cache, every slot full (the most the
+    # shape can ask), and at the lengths the serve phase reaches.
+    B, Sk, Hq, Hkv, D = GRANITE_SLOTS, GRANITE_MAX_LEN, 32, 8, 64
+    q = rand(torch, (B, 1, Hq, D), dtype, 4, device)
+    # Two sets of caches, taken in turn: together they exceed the 50 MB L2,
+    # so no call finds its keys left there by the call before.
+    ks = [rand(torch, (B, Sk, Hkv, D), dtype, 5 + i, device) for i in range(2)]
+    vs = [rand(torch, (B, Sk, Hkv, D), dtype, 7 + i, device) for i in range(2)]
+    k, v = ks[0], vs[0]
+    turn = {"i": 0}
+
+    def caches():
+        turn["i"] ^= 1
+        return ks[turn["i"]], vs[turn["i"]]
+
+    # The yardstick needs grouped heads in one call; older PyTorch lacks it.
+    sdpa_gqa = "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or "")
+
+    def measure(lens):
+        mask = (torch.arange(Sk, device=device)[None, :] < lens[:, None])[:, None, None, :]
+        qt = q.transpose(1, 2)
+
+        def sdpa():
+            kk, vv = caches()
+            return F.scaled_dot_product_attention(qt, kk.transpose(1, 2), vv.transpose(1, 2),
+                                                  attn_mask=mask, enable_gqa=True)
+
+        got = decode_attention(q, k, v, lens)
+        err, ratio = errors(torch, got, decode_attention_plain(q, k, v, lens), dt)
+        require(ratio <= 1.0, f"timing: decode_attention error {err} beyond tolerance")
+        ms, call = timer(lambda: decode_attention(q, *caches(), lens))
+        plain, plain_call = timer(lambda: decode_attention_plain(q, *caches(), lens), iters=10)
+        lib, lib_call = timer(sdpa) if sdpa_gqa else (None, None)
+        ms2, call2 = timer(lambda: decode_attention(q, *caches(), lens))
+        valid = int(lens.clamp(0, Sk).sum())
+        nbytes = 2 * valid * Hkv * D * 2 + 2 * q.numel() * 2 + lens.numel() * 4
+        b_ms, b_by = bound(nbytes, 4 * valid * Hq * D, dt)
+        return dict(max_abs_err=err, tol=TOL[dt], ms=min(ms, ms2), plain_ms=plain, bound_ms=b_ms,
+                    call_ms=min(call, call2), plain_call_ms=plain_call,
+                    library_call_ms=lib_call,
+                    bound_by=b_by, library_ms=lib, bytes=nbytes, valid_keys=valid)
+
+    full = measure(torch.full((B,), Sk, dtype=torch.int32, device=device))
+    served = measure(torch.tensor([17, 33, 48, 64, 70, 81, 90, 96], dtype=torch.int32,
+                                  device=device))
+    out.append(dict(name="decode_attention", route="cuda",
+                    source="src/repro_torch/csrc/decode_attention.cu",
+                    replaces="src/repro/kernels/decode_attention.py:59",
+                    launches=launches["decode_attention"], **full,
+                    library="torch.nn.functional.scaled_dot_product_attention(enable_gqa)",
+                    shape=[B, Sk, Hq, Hkv, D], dtype=dt, kv_len="every slot full",
+                    at_served_lengths=served))
+    return out
+
+
+def run_engine_steps(torch, cfg, params, device, n_steps, requests, **kw):
+    from repro_torch.serve import ServeEngine
+    engine = ServeEngine(cfg, params, batch_slots=GRANITE_SLOTS, max_len=GRANITE_MAX_LEN,
+                         eos_id=-1, device=device, **kw)
+    state = record_logits(torch, engine, keep=True)
+    for r in requests:
+        engine.submit(r)
+    for _ in range(n_steps):
+        engine.step()
+    torch.cuda.synchronize()
+    require(bool(state["finite"]), "path_vs_plain: non-finite logits")
+    return torch.stack(state["logits"])          # (steps, slots, vocab)
+
+
+def phase_path_vs_plain(torch, device, cfg4, params4):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rmsnorm import rms_norm
+
+    n_steps = 16
+    before = rms_norm.launches
+    kern = run_engine_steps(torch, cfg4, params4, device, n_steps,
+                            draw_requests(GRANITE_SLOTS, cfg4.vocab_size, seed=1))
+    used = rms_norm.launches - before
+    with ops.use_plain():
+        plain = run_engine_steps(torch, cfg4, params4, device, n_steps,
+                                 draw_requests(GRANITE_SLOTS, cfg4.vocab_size, seed=1))
+    require(rms_norm.launches - before == used, "use_plain() still launched a kernel")
+    require(used == n_steps * (2 * cfg4.n_layers + 1), "path_vs_plain: kernels not on the path")
+    err, ratio = errors(torch, kern, plain, "bfloat16")
+    require(ratio <= 1.0, f"path_vs_plain: logits differ by {err}")
+    # Greedy tokens agree wherever the plain path's top-two gap is decisive.
+    top2 = plain.topk(2, dim=-1).values
+    decisive = (top2[..., 0] - top2[..., 1]) > 2 * (0.05 + 0.05 * top2[..., 0].abs())
+    same = kern.argmax(-1) == plain.argmax(-1)
+    require(bool((same | ~decisive).all()), "path_vs_plain: greedy tokens differ")
+    emit(phase="path_vs_plain", layers=cfg4.n_layers, steps=n_steps, max_abs_err=err,
+         err_over_tol=ratio, tol=TOL["bfloat16"], decisive_positions=int(decisive.sum()),
+         positions=int(decisive.numel()), tokens_equal=int(same.sum()))
+
+
+def phase_migrate(torch, device, cfg4, params4):
+    """Run to the end on one engine; run a twin to 4 generated tokens on a
+    second, export its slot, import it into another slot of a third, finish
+    there: same tokens, same slot state, bit for bit."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.serve import Request, ServeEngine
+
+    mk = lambda: ServeEngine(cfg4, params4, batch_slots=2, max_len=GRANITE_MAX_LEN,
+                             eos_id=-1, temperature=0.7, rng_seed=3, device=device)
+    prompt = list(range(7, 31))
+    ref_eng, ref = mk(), Request(5, prompt=list(prompt), max_new_tokens=16)
+    ref_eng.submit(ref)
+    ref_eng.run_until_done(500)
+
+    src, mig = mk(), Request(5, prompt=list(prompt), max_new_tokens=16)
+    src.submit(mig)
+    while len(mig.output) < 4:
+        src.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = src.export_slot(0)
+    torch.cuda.synchronize()
+    export_s = time.perf_counter() - t0
+    frozen = [t.clone() for t in tree_leaves(state["blocks"])]
+    src.step()                                    # the source moves on ...
+    require(all(torch.equal(a, b) for a, b in zip(frozen, tree_leaves(state["blocks"]))),
+            "migrate: the exported payload changed when the source stepped on")
+    mig.output = mig.output[:4]                   # ... but its 5th token is not ours
+    mig.done = False
+
+    dst = mk()
+    t0 = time.perf_counter()
+    dst.import_slot(1, state)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    dst.slots[1] = mig
+    dst.run_until_done(500)
+    require(mig.done and mig.output == ref.output,
+            f"migrate: outputs differ: {mig.output} vs {ref.output}")
+    got, want = dst.export_slot(1), ref_eng.export_slot(0)
+    require(got["offset"] == want["offset"] and int(got["index"]) == int(want["index"]),
+            "migrate: offsets differ")
+    for a, b in zip(tree_leaves(got["blocks"]), tree_leaves(want["blocks"])):
+        require(torch.equal(a, b), "migrate: slot states differ")
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(state["blocks"]))
+    emit(phase="migrate", layers=cfg4.n_layers, tokens=ref.output, payload_bytes=nbytes,
+         export_seconds=export_s, import_seconds=import_s, outputs_equal=True,
+         slot_state_bit_equal=True)
+
+
+# ------------------------------------------------------------------ main --
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only", default="", help="comma-separated phases of " + ",".join(PHASES))
+    ap.add_argument("--verbose-build", action="store_true")
+    args = ap.parse_args(argv)
+    only = [p for p in args.only.split(",") if p]
+    unknown = sorted(set(only) - set(PHASES))
+    if unknown:
+        ap.error(f"unknown phases {unknown}")
+    run = lambda p: not only or p in only
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU only", file=sys.stderr)
+        return 1
+    import repro_torch  # noqa: F401  (fails here if the package is missing)
+    from repro_torch.configs import get_config
+
+    t_start = time.perf_counter()
+    device = torch.device("cuda", 0)
+    smi_line = phase_device(torch)
+    try:
+        if run("build"):
+            phase_build(args.verbose_build)
+        if run("kernels"):
+            phase_kernels(torch, device)
+        launches = {"rms_norm": 0, "decode_attention": 0}
+        if run("serve"):
+            launches = phase_serve(torch, device)
+        if run("timing"):
+            kernels = phase_timing(torch, device, launches)
+            if not only:
+                for entry in kernels:
+                    require(entry["launches"] > 0, f"{entry['name']} was not launched "
+                                                   "by the serving path")
+        if run("path_vs_plain") or run("migrate"):
+            cfg4 = dataclasses.replace(get_config("granite-3-2b"), n_layers=4)
+            params4 = build_model(torch, cfg4, device)
+            if run("path_vs_plain"):
+                phase_path_vs_plain(torch, device, cfg4, params4)
+            if run("migrate"):
+                phase_migrate(torch, device, cfg4, params4)
+    except Failed as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    print(smi_line, flush=True)
+    emit(phase="done", seconds=time.perf_counter() - t_start, phases=only or list(PHASES))
+    if run("timing"):
+        emit(kernels=kernels)
+    if only:
+        return 0
+    emit(ok=True, device={"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                          "count": torch.cuda.device_count()})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,19 @@
+"""granite-3-2b — dense GQA decoder.
+[hf:ibm-granite/granite-3.0-2b-base]: 40L, d_model 2048, 32 heads (kv 8),
+d_ff 8192, vocab 49155, SwiGLU, tied embeddings."""
+
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-3-2b",
+    family="dense",
+    n_layers=40,
+    d_model=2048,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=8192,
+    vocab_size=49155,
+    ffn_type="swiglu",
+    tie_embeddings=True,
+    rope_theta=10_000.0,
+)

@@ -1,0 +1,57 @@
+"""Carry parameters and caches between the JAX package and the port.
+
+The JAX side hands over its pytree as numpy arrays
+(``jax.tree.map(np.asarray, tree)``); this module never imports JAX.  The
+trees keep their structure and leaf paths; only the leaves change type.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from ._tree import tree_map
+
+
+def _to_tensor(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        # An ml_dtypes array, which torch.from_numpy refuses: reinterpret the
+        # bits instead (exact).
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a, copy=True))   # owns writable memory
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def params_from_jax(tree: Any, device="cuda", dtype: Optional[torch.dtype] = None):
+    """A parameter pytree of numpy arrays -> the port's tree of tensors on
+    ``device``; floating leaves are cast to ``dtype`` when one is given."""
+    return tree_map(lambda a: _to_tensor(a, device, dtype), tree)
+
+
+def cache_from_jax(tree: Any, device="cuda", dtype: Optional[torch.dtype] = None):
+    """A cache pytree (`init_cache`, or one slot's `export_slot` payload) of
+    numpy arrays -> tensors; ``index`` keeps its integer type, python
+    scalars (the payload's ``offset``) pass through."""
+    return tree_map(
+        lambda a: a if isinstance(a, (int, float)) else _to_tensor(a, device, dtype), tree)
+
+
+def _to_numpy(t) -> Any:
+    if not isinstance(t, torch.Tensor):
+        return t
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()           # exact; numpy has no bfloat16 of its own
+    return t.numpy()
+
+
+def tree_to_numpy(tree: Any):
+    """The way back: a tree of tensors -> numpy arrays with the same leaf
+    paths (bfloat16 widened to float32), to compare leaf for leaf."""
+    return tree_map(_to_numpy, tree)

@@ -1,0 +1,75 @@
+// Shared by the kernels: 16-byte vectors of fp32 / bf16 and their
+// conversion to and from fp32 registers.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace repro {
+
+__device__ __forceinline__ uint4 load16(const void* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+// Read-only path, for data that no thread of the running kernel writes.
+__device__ __forceinline__ uint4 load16_ro(const void* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+__device__ __forceinline__ void store16(void* p, uint4 v) {
+  *reinterpret_cast<uint4*>(p) = v;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  // round to nearest even, as a cast to bf16 does
+  uint32_t l = __bfloat16_as_ushort(__float2bfloat16_rn(lo));
+  uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(hi));
+  return l | (h << 16);
+}
+
+// Vec16<T>: N values of T fill one 16-byte vector; unpack widens them to
+// fp32 registers, pack narrows them back, one() narrows a single value.
+template <typename T>
+struct Vec16;
+
+template <>
+struct Vec16<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ void unpack(uint4 r, float* f) {
+    f[0] = __uint_as_float(r.x);
+    f[1] = __uint_as_float(r.y);
+    f[2] = __uint_as_float(r.z);
+    f[3] = __uint_as_float(r.w);
+  }
+  static __device__ __forceinline__ uint4 pack(const float* f) {
+    return make_uint4(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                      __float_as_uint(f[2]), __float_as_uint(f[3]));
+  }
+  static __device__ __forceinline__ float one(float x) { return x; }
+};
+
+template <>
+struct Vec16<__nv_bfloat16> {
+  static constexpr int N = 8;
+  // A bf16 is the upper half of an fp32: widening is a shift.
+  static __device__ __forceinline__ void unpack(uint4 r, float* f) {
+    f[0] = __uint_as_float(r.x << 16);
+    f[1] = __uint_as_float(r.x & 0xffff0000u);
+    f[2] = __uint_as_float(r.y << 16);
+    f[3] = __uint_as_float(r.y & 0xffff0000u);
+    f[4] = __uint_as_float(r.z << 16);
+    f[5] = __uint_as_float(r.z & 0xffff0000u);
+    f[6] = __uint_as_float(r.w << 16);
+    f[7] = __uint_as_float(r.w & 0xffff0000u);
+  }
+  static __device__ __forceinline__ uint4 pack(const float* f) {
+    return make_uint4(pack_bf16x2(f[0], f[1]), pack_bf16x2(f[2], f[3]),
+                      pack_bf16x2(f[4], f[5]), pack_bf16x2(f[6], f[7]));
+  }
+  static __device__ __forceinline__ __nv_bfloat16 one(float x) {
+    return __float2bfloat16_rn(x);
+  }
+};
+
+}  // namespace repro

@@ -1,0 +1,148 @@
+"""Builds the CUDA sources under ``csrc/`` into one shared library with a
+plain C interface, and loads it with `ctypes`.
+
+The library is built at first use, from the sources in the package and
+nothing else: one ``nvcc -c`` per source, all started together, then one
+link.  It lands in ``build/repro_torch/`` beside ``src/`` (or in
+``$REPRO_TORCH_BUILD_DIR``), under a name that carries the hash of the
+sources and flags, so an edited source rebuilds and an unchanged one loads.
+A failed build raises with the compiler's output.
+
+Nothing here runs at import: `nvcc` and `ctypes.CDLL` are touched only by
+`library()`, which the kernel wrappers call when they launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import List, Optional
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+def sources() -> List[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> List[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
+def build_dir() -> Path:
+    override = os.environ.get("REPRO_TORCH_BUILD_DIR")
+    if override:
+        return Path(override)
+    # src/repro_torch/kernels/_build.py -> the directory that holds src/
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for flag in ARCH_FLAGS + NVCC_FLAGS:
+        h.update(flag.encode())
+    for path in sources() + headers():
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return build_dir() / f"librepro_torch_{source_hash()}.so"
+
+
+def find_nvcc() -> Optional[str]:
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    return str(default) if default.exists() else None
+
+
+def compile_command(src: Path, obj: Path, nvcc: str = "nvcc") -> List[str]:
+    return [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src),
+            "-o", str(obj)]
+
+
+def link_command(objs: List[Path], lib: Path, nvcc: str = "nvcc") -> List[str]:
+    return [nvcc, *ARCH_FLAGS, "-shared", "-o", str(lib), *map(str, objs)]
+
+
+def build() -> Path:
+    """Compile every source (in parallel) and link; returns the library.
+    The compiler's messages (register counts) go to ``build.log`` beside it."""
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError("nvcc not found (looked in $CUDA_HOME, $PATH and "
+                           "/usr/local/cuda): the CUDA kernels cannot be built")
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    lib = library_path()
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = [out / f"{tag}.{src.stem}.o" for src in sources()]
+    procs = [subprocess.Popen(compile_command(src, obj, nvcc), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources(), objs)]
+    log, failed = [], []
+    for src, proc in zip(sources(), procs):
+        text, _ = proc.communicate()
+        log.append(f"== {src.name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(log))
+    tmp = out / f"{tag}.so"
+    link = subprocess.run(link_command(objs, tmp, nvcc), stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc failed to link {lib.name}:\n{link.stdout}")
+    os.replace(tmp, lib)          # atomic: a concurrent build sees all or nothing
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    (out / "build.log").write_text("\n".join(log))
+    return lib
+
+
+_PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+#: C signatures of the launchers; each returns the launch's cudaError_t.
+SIGNATURES = {
+    # x, scale, out, rows, d, eps, is_bf16, stream
+    "repro_rms_norm": [_PTR, _PTR, _PTR, _INT, _INT, _FLOAT, _INT, _PTR],
+    # q, k, v, kv_len, out, part_m, part_l, part_acc,
+    # B, Sk, Hq, Hkv, D, chunk, n_splits, is_bf16, stream
+    "repro_decode_attention": [_PTR] * 8 + [_INT] * 8 + [_PTR],
+}
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if its file is missing."""
+    lib_path = library_path()
+    if not lib_path.exists():
+        build()
+    lib = ctypes.CDLL(str(lib_path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.repro_error_string.argtypes = [ctypes.c_int]
+    lib.repro_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a launcher returned a non-zero cudaError_t."""
+    if code != 0:
+        text = library().repro_error_string(code).decode() if code > 0 else "unsupported arguments"
+        raise RuntimeError(f"{what}: kernel launch failed with code {code} ({text})")

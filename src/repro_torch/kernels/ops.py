@@ -1,0 +1,40 @@
+"""Kernel entry points that the model calls.
+
+Each entry hands its tensors to the kernel's wrapper, which picks by the
+tensor's device: a CUDA tensor launches the hand-written kernel (or raises),
+a CPU tensor runs the plain PyTorch version.  `use_plain()` forces the plain
+versions for the length of a ``with`` block, so that a check can run the
+same path twice and compare; nothing in the package calls it.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+from . import decode_attention as _decode
+from . import rmsnorm as _rmsnorm
+
+_force_plain = False
+
+
+@contextlib.contextmanager
+def use_plain():
+    """Within the block every entry below runs its plain version."""
+    global _force_plain
+    before, _force_plain = _force_plain, True
+    try:
+        yield
+    finally:
+        _force_plain = before
+
+
+def rms_norm(x, scale, eps: float = 1e-5):
+    if _force_plain:
+        return _rmsnorm.rms_norm_plain(x, scale, eps)
+    return _rmsnorm.rms_norm(x, scale, eps)
+
+
+def decode_attention(q, k_cache, v_cache, kv_len):
+    if _force_plain:
+        return _decode.decode_attention_plain(q, k_cache, v_cache, kv_len)
+    return _decode.decode_attention(q, k_cache, v_cache, kv_len)

@@ -1,0 +1,17 @@
+"""Plain PyTorch versions of every ported kernel, under kernel-oriented
+names.  They delegate to the model layer (one source of truth) and are what
+the kernels are held against."""
+
+from __future__ import annotations
+
+from repro_torch.models.attention import gqa_reference
+from repro_torch.models.layers import rms_norm as _rms_norm_model
+
+
+def decode_attention_ref(q, k_cache, v_cache, kv_len):
+    """One-token decode against a (B,Sk,Hkv,D) cache with valid prefix."""
+    return gqa_reference(q, k_cache, v_cache, causal=False, kv_len=kv_len)
+
+
+def rms_norm_ref(x, scale, eps: float = 1e-5):
+    return _rms_norm_model(x, scale, eps)

@@ -1,0 +1,22 @@
+"""Model substrate of the torch port: the dense GQA decoder path."""
+
+from .config import (  # noqa: F401
+    ALL_SHAPES,
+    DECODE_32K,
+    LONG_500K,
+    PREFILL_32K,
+    SHAPES_BY_NAME,
+    TRAIN_4K,
+    ModelConfig,
+    ShapeConfig,
+    reduced,
+)
+from .transformer import (  # noqa: F401
+    DecoderLM,
+    forward,
+    init_cache,
+    init_lm,
+    logits_fn,
+    reset_slot,
+    stack_layout,
+)

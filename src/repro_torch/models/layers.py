@@ -1,0 +1,140 @@
+"""Base layers: RMSNorm, embeddings, RoPE, linear init.
+
+Plain functions on tensors; ``init_*`` builds nested dicts of tensors whose
+leaf names equal the reference's (`repro.models.layers`), ``w`` stored
+``(d_in, d_out)``.  Random draws take an explicit ``torch.Generator``.
+
+Still to port from the reference module: `layer_norm`, M-RoPE,
+`rope_tables` and `bf16_cotangent_barrier` (training only).  The gelu and
+squared-ReLU activations live beside their one user, in `ffn.py`.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from .config import ModelConfig
+
+_DTYPES = {
+    "float32": torch.float32,
+    "bfloat16": torch.bfloat16,
+    "float16": torch.float16,
+    "float64": torch.float64,
+}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def _device_of(generator: Optional[torch.Generator], device) -> torch.device:
+    if device is not None:
+        return torch.device(device)
+    return generator.device if generator is not None else torch.device("cuda")
+
+
+def _truncated_normal(generator, shape, device) -> torch.Tensor:
+    """Standard normal truncated to [-2, 2], by inverting the CDF."""
+    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+    hi = 1.0 - lo
+    u = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
+    u = u.mul_(hi - lo).add_(lo)
+    x = torch.erfinv(u.mul_(2.0).sub_(1.0)).mul_(math.sqrt(2.0))
+    return x.clamp_(-2.0, 2.0)
+
+
+# ------------------------------------------------------------------ linear
+def init_linear(generator, d_in: int, d_out: int, dtype, bias: bool = False,
+                scale: Optional[float] = None, device=None):
+    """Truncated-normal fan-in init (LeCun-ish), matching common LM practice."""
+    device = _device_of(generator, device)
+    if scale is None:
+        scale = d_in ** -0.5
+    w = (_truncated_normal(generator, (d_in, d_out), device) * scale).to(dtype)
+    p = {"w": w}
+    if bias:
+        p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
+    return p
+
+
+def apply_linear(p, x, compute_dtype):
+    y = torch.matmul(x.to(compute_dtype), p["w"].to(compute_dtype))
+    if "b" in p:
+        y = y + p["b"].to(compute_dtype)
+    return y
+
+
+# -------------------------------------------------------------------- norm
+def init_rmsnorm(d: int, dtype, device="cuda"):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rms_norm(x, scale, eps: float):
+    """Plain RMSNorm: fp32 math, output in x's type.  The plain version of
+    `repro_torch.kernels.rmsnorm.rms_norm`."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(x.dtype)
+
+
+def fused_rms_norm(x, scale, eps: float):
+    """What the model calls: the hand-written kernel for a CUDA tensor, the
+    plain `rms_norm` for a CPU tensor (see `repro_torch.kernels.ops`)."""
+    from repro_torch.kernels import ops as kops
+    return kops.rms_norm(x, scale, eps)
+
+
+# --------------------------------------------------------------- embedding
+def init_embedding(generator, vocab: int, d: int, dtype, device=None):
+    device = _device_of(generator, device)
+    e = torch.randn((vocab, d), generator=generator, device=device,
+                    dtype=torch.float32) * d ** -0.5
+    return {"embedding": e.to(dtype)}
+
+
+def embed(p, tokens, compute_dtype):
+    return p["embedding"][tokens].to(compute_dtype)
+
+
+def unembed(p, x, logit_dtype):
+    """Multiplies in the operands' common type, casts to ``logit_dtype``
+    afterwards (as the reference's einsum does)."""
+    e = p["embedding"]
+    dt = torch.promote_types(x.dtype, e.dtype)
+    return torch.matmul(x.to(dt), e.to(dt).t()).to(logit_dtype)
+
+
+# -------------------------------------------------------------------- RoPE
+def rope_freqs(d_head: int, theta: float, device=None) -> torch.Tensor:
+    i = torch.arange(0, d_head, 2, dtype=torch.float32, device=device)
+    return 1.0 / (theta ** (i / d_head))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, Dh); positions: broadcastable to (..., S).  Split-half
+    rotation: element i pairs with element i + Dh/2."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)           # (Dh/2,)
+    angles = positions[..., None].float() * freqs              # (..., S, Dh/2)
+    cos = torch.cos(angles)[..., None, :]                      # (..., S, 1, Dh/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def positions_for(cfg: ModelConfig, batch: int, seq: int, offset=0,
+                  device=None) -> torch.Tensor:
+    """(batch, seq) int32 positions; ``offset`` is an int, a 0-d tensor or a
+    per-row ``(batch,)`` tensor."""
+    if cfg.mrope:
+        raise NotImplementedError("M-RoPE positions: ROADMAP Queue 1 item 13")
+    if isinstance(offset, torch.Tensor) and device is None:
+        device = offset.device
+    off = torch.as_tensor(offset, device=device)
+    pos = torch.arange(seq, dtype=torch.int32, device=device)[None, :]
+    pos = pos + (off[:, None] if off.ndim else off)   # per-row offsets allowed
+    return pos.expand(batch, seq).to(torch.int32)

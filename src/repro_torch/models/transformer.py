@@ -1,0 +1,302 @@
+"""Decoder-LM assembly, dense part.
+
+Layer stacks are grouped into their minimal repeating *period*; the params
+and caches of the period's layers carry a leading ``(n_full,)`` axis, as in
+`repro.models.transformer`, so converted weights and per-slot cache slices
+(``x[:, slot]``) carry over leaf for leaf.  Where the reference scans that
+axis with `jax.lax.scan`, `forward` runs a Python loop over it.
+
+This slice supports period-1 stacks of attention + FFN blocks (the dense
+family: granite, qwen1.5, nemotron).  MoE, Mamba2 / xLSTM mixers, zamba2's
+shared block, the encoder and cross-attention, vision prefixes and hoisted
+RoPE tables raise `NotImplementedError` (ROADMAP Queue 1 items 10-13).
+
+`forward` covers full-sequence and cached (prefill-into-cache, decode) runs
+via the optional cache.  The cache's K and V are updated IN PLACE.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from .._tree import tree_map
+from .attention import attention, init_attention, init_kv_cache
+from .config import BLOCK_ATTN, ModelConfig
+from .ffn import ffn, init_ffn
+from .layers import (
+    apply_linear,
+    dtype_of,
+    embed,
+    fused_rms_norm,
+    init_embedding,
+    init_linear,
+    init_rmsnorm,
+    positions_for,
+    unembed,
+)
+
+
+# ---------------------------------------------------------------- layout --
+@dataclasses.dataclass(frozen=True)
+class StackLayout:
+    kinds: Tuple[str, ...]       # full layer pattern
+    period: int
+    n_full: int                  # stacked periods
+    tail: Tuple[str, ...]        # unstacked remainder kinds
+    shared_attn: bool
+
+    @property
+    def period_kinds(self) -> Tuple[str, ...]:
+        return self.kinds[: self.period]
+
+
+def _minimal_period(pattern: Tuple[str, ...]) -> int:
+    for p in range(1, len(pattern) + 1):
+        if all(pattern[i] == pattern[i % p] for i in range(len(pattern))):
+            return p
+    return len(pattern)
+
+
+def stack_layout(cfg: ModelConfig) -> StackLayout:
+    pattern = cfg.layer_pattern()
+    p = _minimal_period(pattern)
+    if cfg.shared_attn_every:
+        p = max(p, cfg.shared_attn_every)
+    if not cfg.scan_layers:
+        p = len(pattern)
+    n_full = len(pattern) // p
+    tail = pattern[n_full * p:]
+    return StackLayout(pattern, p, n_full, tail, bool(cfg.shared_attn_every))
+
+
+def _dense_layout(cfg: ModelConfig) -> StackLayout:
+    """The layout, or `NotImplementedError` for what this slice lacks."""
+    layout = stack_layout(cfg)
+    if layout.shared_attn:
+        raise NotImplementedError("zamba2 shared attention: ROADMAP Queue 1 item 10")
+    if cfg.n_encoder_layers:
+        raise NotImplementedError("encoder-decoder: ROADMAP Queue 1 item 13")
+    if cfg.mrope or cfg.vision_stub_patches:
+        raise NotImplementedError("VLM / M-RoPE: ROADMAP Queue 1 item 13")
+    other = sorted(set(layout.kinds) - {BLOCK_ATTN})
+    if other:
+        raise NotImplementedError(
+            f"block kinds {other}: ROADMAP Queue 1 items 10-12")
+    return layout
+
+
+# ------------------------------------------------------------------ init --
+def init_block(generator, cfg: ModelConfig, kind: str, dtype, cross: bool = False,
+               device=None) -> Dict:
+    if kind != BLOCK_ATTN or cross:
+        raise NotImplementedError(f"block kind {kind!r} (cross={cross}): "
+                                  "ROADMAP Queue 1 items 10-13")
+    d = cfg.d_model
+    device = generator.device if device is None else device
+    return {
+        "norm1": init_rmsnorm(d, dtype, device),
+        "attn": init_attention(generator, cfg, dtype, device=device),
+        "norm2": init_rmsnorm(d, dtype, device),
+        "ffn": init_ffn(generator, cfg, dtype, device=device),
+    }
+
+
+def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                     cross_len: int = 0, device="cuda") -> Dict:
+    if kind != BLOCK_ATTN or cross_len:
+        raise NotImplementedError(f"cache for block kind {kind!r} "
+                                  f"(cross_len={cross_len}): ROADMAP Queue 1 items 10-13")
+    return {"attn": init_kv_cache(cfg, batch, max_len, dtype_of(cfg.compute_dtype), device)}
+
+
+def _stack_trees(trees: List[Any]):
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def init_lm(generator: torch.Generator, cfg: ModelConfig, device=None) -> Dict:
+    """Full parameter tree.  Stacked period params carry a leading
+    (n_full,) axis; tail layers are unstacked.  ``device`` defaults to the
+    generator's."""
+    dtype = dtype_of(cfg.param_dtype)
+    layout = _dense_layout(cfg)
+    device = generator.device if device is None else torch.device(device)
+    params: Dict[str, Any] = {
+        "embed": init_embedding(generator, cfg.vocab_size, cfg.d_model, dtype, device)}
+    blocks = {}
+    for j, kind in enumerate(layout.period_kinds):
+        per = [init_block(generator, cfg, kind, dtype, device=device)
+               for _ in range(layout.n_full)]
+        blocks[f"pos{j}"] = _stack_trees(per)
+    params["blocks"] = blocks
+    params["tail"] = [init_block(generator, cfg, kind, dtype, device=device)
+                      for kind in layout.tail]
+    params["final_norm"] = init_rmsnorm(cfg.d_model, dtype, device)
+    if not cfg.tie_embeddings:
+        params["unembed"] = init_linear(generator, cfg.d_model, cfg.vocab_size,
+                                        dtype, device=device)
+    return params
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, cross_len: int = 0,
+               per_slot_index: bool = False, device="cuda") -> Dict:
+    layout = _dense_layout(cfg)
+    idx = torch.zeros((batch,) if per_slot_index else (), dtype=torch.int32,
+                      device=device)
+    cache: Dict[str, Any] = {"blocks": {}, "tail": [], "index": idx}
+    for j, kind in enumerate(layout.period_kinds):
+        per = [init_block_cache(cfg, kind, batch, max_len, cross_len, device)
+               for _ in range(layout.n_full)]
+        cache["blocks"][f"pos{j}"] = _stack_trees(per)
+    cache["tail"] = [init_block_cache(cfg, kind, batch, max_len, cross_len, device)
+                     for kind in layout.tail]
+    return cache
+
+
+def reset_slot(cache: Dict, slot) -> Dict:
+    """Zero one batch slot across the whole cache, IN PLACE, and return the
+    cache (continuous batching: a freed slot is wiped before a new request
+    is admitted; the index must be per-slot)."""
+    cache["index"][slot] = 0
+    tree_map(lambda x: x[:, slot].zero_(), cache["blocks"])
+    tree_map(lambda x: x[slot].zero_(), cache["tail"])
+    return cache
+
+
+# --------------------------------------------------------------- forward --
+def _attn_block(bp, x, cfg, positions, cache, index, encoder_out, kind,
+                rope_cache=None):
+    if "cross" in bp or encoder_out is not None:
+        raise NotImplementedError("cross-attention: ROADMAP Queue 1 item 13")
+    h = fused_rms_norm(x, bp["norm1"]["scale"], cfg.norm_eps)
+    a, attn_cache = attention(
+        bp["attn"], h, cfg, positions, causal=True,
+        cache=None if cache is None else cache["attn"],
+        cache_index=None if cache is None else index,
+        rope_cache=rope_cache,
+    )
+    x = x + a
+    new_cache = None if cache is None else dict(cache, attn=attn_cache)
+    h2 = fused_rms_norm(x, bp["norm2"]["scale"], cfg.norm_eps)
+    return x + ffn(bp["ffn"], h2, cfg), new_cache
+
+
+@torch.no_grad()
+def forward(
+    params: Dict,
+    tokens: Optional[torch.Tensor],       # (B, S) int; None if embeds given
+    cfg: ModelConfig,
+    *,
+    positions: Optional[torch.Tensor] = None,
+    cache: Optional[Dict] = None,
+    encoder_out: Optional[torch.Tensor] = None,
+    vision_embeds: Optional[torch.Tensor] = None,
+    input_embeds: Optional[torch.Tensor] = None,
+    decoding: bool = False,
+) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
+    """Returns (hidden (B,S,d) -- NOT logits; see `logits_fn` --, new_cache,
+    aux_loss).  Inference only (runs without autograd).
+
+    ``new_cache`` shares its K/V tensors with ``cache``: they are written in
+    place; only ``index`` is a new tensor.  The config's ``remat``,
+    ``psum_barrier`` and ``bf16_cotangent`` are accepted and ignored: they
+    shape the reference's backward pass and its compiled program, and change
+    no forward value.  ``hoist_rope``, ``encoder_out`` and ``vision_embeds``
+    raise `NotImplementedError`.
+    """
+    if encoder_out is not None or vision_embeds is not None:
+        raise NotImplementedError("encoder memory / vision prefix: "
+                                  "ROADMAP Queue 1 item 13")
+    if cfg.hoist_rope:
+        raise NotImplementedError("hoist_rope: ROADMAP Queue 1 item 2")
+    cd = dtype_of(cfg.compute_dtype)
+    layout = _dense_layout(cfg)
+    if input_embeds is not None:
+        x = input_embeds.to(cd)
+    else:
+        x = embed(params["embed"], tokens, cd)
+    B, S, _ = x.shape
+    if positions is None:
+        offset = cache["index"] if cache is not None else 0
+        positions = positions_for(cfg, B, S, offset, device=x.device)
+    index = cache["index"] if cache is not None else None
+
+    for i in range(layout.n_full):
+        for j, kind in enumerate(layout.period_kinds):
+            bp = tree_map(lambda t: t[i], params["blocks"][f"pos{j}"])
+            cj = None if cache is None else tree_map(
+                lambda t: t[i], cache["blocks"][f"pos{j}"])
+            x, _ = _attn_block(bp, x, cfg, positions, cj, index, None, kind)
+    for t, kind in enumerate(layout.tail):
+        cj = None if cache is None else cache["tail"][t]
+        x, _ = _attn_block(params["tail"][t], x, cfg, positions, cj, index, None, kind)
+
+    x = fused_rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    new_cache = None
+    if cache is not None:
+        new_cache = {"blocks": cache["blocks"], "tail": cache["tail"],
+                     "index": cache["index"] + S}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, new_cache, aux
+
+
+@torch.no_grad()
+def logits_fn(params: Dict, hidden: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return unembed(params["embed"], hidden, dtype_of(cfg.logit_dtype))
+    return apply_linear(params["unembed"], hidden, dtype_of(cfg.logit_dtype))
+
+
+# ---------------------------------------------------------------- module --
+class _Tree(nn.Module):
+    """One level of the parameter tree: dict keys (or list positions) become
+    child modules or frozen parameters, so `state_dict()` keys are the
+    dotted leaf paths."""
+
+    def __init__(self, tree):
+        super().__init__()
+        self._is_list = isinstance(tree, (list, tuple))
+        items = enumerate(tree) if self._is_list else tree.items()
+        for k, v in items:
+            if isinstance(v, (dict, list, tuple)):
+                self.add_module(str(k), _Tree(v))
+            else:
+                self.register_parameter(str(k), nn.Parameter(v, requires_grad=False))
+
+    def as_tree(self):
+        out = {k: m.as_tree() for k, m in self._modules.items()}
+        out.update({k: p.data for k, p in self._parameters.items()})
+        if self._is_list:
+            return [out[str(i)] for i in range(len(out))]
+        return out
+
+
+class DecoderLM(_Tree):
+    """Thin module around the functional model: registers the parameter
+    tree (``.to(device)``, ``state_dict()`` keyed by the reference's leaf
+    paths) and forwards to `forward` / `logits_fn`."""
+
+    def __init__(self, cfg: ModelConfig, params: Optional[Dict] = None, *,
+                 generator: Optional[torch.Generator] = None, device="cuda"):
+        if params is None:
+            if generator is None:
+                generator = torch.Generator(device).manual_seed(0)
+            params = init_lm(generator, cfg, device=device)
+        super().__init__(params)
+        self.cfg = cfg
+
+    @property
+    def params(self) -> Dict:
+        """The nested dict of tensors that the functional API takes."""
+        return self.as_tree()
+
+    def forward(self, tokens, cache=None, positions=None):
+        hidden, cache, _ = forward(self.params, tokens, self.cfg,
+                                   positions=positions, cache=cache)
+        return hidden, cache
+
+    def logits(self, hidden):
+        return logits_fn(self.params, hidden, self.cfg)

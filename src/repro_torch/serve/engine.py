@@ -1,0 +1,206 @@
+"""Serving: prefill / decode steps and a continuous-batching engine.
+
+`make_prefill_step` / `make_decode_step` build the pure step functions;
+`ServeEngine` drives the decode step for real requests, prefilling a
+request *through* the decode step, one token a step, into its slot.
+
+Everything runs on ``device`` (default ``"cuda"``); the K/V cache is
+updated in place.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import struct
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch._tree import tree_map
+from repro_torch.models import ModelConfig, forward, init_cache, logits_fn
+from repro_torch.models.transformer import reset_slot
+
+
+def make_prefill_step(cfg: ModelConfig, max_len: int, cross_len: int = 0,
+                      device="cuda"):
+    """(params, batch) -> (cache, last_token_logits).
+
+    batch: {"tokens": (B,S)} (+ positions).  The cache is allocated inside
+    (zeros).  Dense decoders only; a length that needs chunked attention
+    raises `NotImplementedError`.
+    """
+    if cross_len or cfg.n_encoder_layers:
+        raise NotImplementedError("encoder-decoder prefill: ROADMAP Queue 1 item 13")
+
+    def prefill(params, batch):
+        tokens = batch["tokens"]
+        cache = init_cache(cfg, tokens.shape[0], max_len, device=device)
+        hidden, cache, _ = forward(params, tokens, cfg,
+                                   positions=batch.get("positions"), cache=cache)
+        return cache, logits_fn(params, hidden[:, -1:], cfg)
+
+    return prefill
+
+
+def make_decode_step(cfg: ModelConfig):
+    """(params, cache, tokens (B,1)) -> (cache, logits (B,1,V))."""
+
+    def decode(params, cache, tokens):
+        hidden, cache, _ = forward(params, tokens, cfg, cache=cache)
+        return cache, logits_fn(params, hidden, cfg)
+
+    return decode
+
+
+def sample(logits: torch.Tensor, generator: Optional[torch.Generator],
+           temperature: float = 0.0) -> torch.Tensor:
+    """Greedy for ``temperature <= 0``; else one categorical draw per row of
+    ``logits / temperature`` by the Gumbel-max trick, the noise drawn on the
+    CPU from ``generator`` so that a seed gives one stream on any device."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1)
+    u = torch.rand(logits.shape, generator=generator, dtype=torch.float32)
+    u = u.clamp_(min=torch.finfo(torch.float32).tiny)
+    gumbel = -torch.log(-torch.log(u))
+    return torch.argmax(logits.float() / temperature + gumbel.to(logits.device), dim=-1)
+
+
+# ------------------------------------------------------------------ engine
+@dataclasses.dataclass
+class Request:
+    req_id: int
+    prompt: List[int]
+    max_new_tokens: int = 32
+    done: bool = False
+    output: List[int] = dataclasses.field(default_factory=list)
+
+
+class ServeEngine:
+    """Slot-based continuous batching over a fixed decode batch.
+
+    Finished sequences free their slot; queued requests are prefilled into
+    freed slots through the decode step.  Placing *engines* on nodes is the
+    fleet scheduler's work; `export_slot` / `import_slot` are what it moves
+    a live request with."""
+
+    def __init__(self, cfg: ModelConfig, params, batch_slots: int, max_len: int,
+                 eos_id: int = 0, temperature: float = 0.0, rng_seed: int = 0,
+                 device="cuda"):
+        self.cfg = cfg
+        self.params = params
+        self.device = torch.device(device)
+        self.slots: List[Optional[Request]] = [None] * batch_slots
+        self.max_len = max_len
+        self.eos_id = eos_id
+        self.temperature = temperature
+        self.rng_seed = rng_seed
+        self.queue: List[Request] = []
+        self.finished: List[Request] = []
+        self.cache = init_cache(cfg, batch_slots, max_len, per_slot_index=True,
+                                device=self.device)
+        # Per-slot write offsets (slot-local KV positions).
+        self.offsets = np.zeros(batch_slots, np.int32)
+        self._decode = make_decode_step(cfg)
+        self.steps = 0
+
+    def _request_generator(self, req: Request) -> torch.Generator:
+        """Generator for ``req``'s next token: seeded from (rng_seed, req_id,
+        tokens generated so far) and nothing else -- never from batch
+        position or step count -- so a sampled decode replays identically
+        whatever other requests share the batch, and a request resumed on
+        another engine (same ``rng_seed``) continues the same stream."""
+        key = struct.pack("<qqq", self.rng_seed, req.req_id, len(req.output))
+        seed = int.from_bytes(hashlib.blake2b(key, digest_size=8).digest(), "little")
+        return torch.Generator("cpu").manual_seed(seed & (2 ** 63 - 1))
+
+    def submit(self, req: Request) -> None:
+        self.queue.append(req)
+
+    # Slot-level prefill: run the prompt through decode one token at a time
+    # into this slot's cache region.  Simple and exactly consistent with
+    # decode (per-slot caches share the batched buffers).
+    def _admit(self, slot: int, req: Request) -> None:
+        self.slots[slot] = req
+        self.offsets[slot] = 0
+        # Reset the slot's write offset and wipe its K/V (stale K/V would be
+        # masked by kv_len anyway; zeroing keeps slot states comparable).
+        self.cache = reset_slot(self.cache, slot)
+        req.output = []
+
+    def _slot_tokens(self) -> np.ndarray:
+        toks = np.zeros((len(self.slots), 1), np.int32)
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            pos = int(self.offsets[i])
+            if pos < len(req.prompt):
+                toks[i, 0] = req.prompt[pos]
+            else:
+                toks[i, 0] = req.output[-1] if req.output else self.eos_id
+        return toks
+
+    @torch.no_grad()
+    def step(self) -> None:
+        # Fill free slots.
+        for i, s in enumerate(self.slots):
+            if s is None and self.queue:
+                self._admit(i, self.queue.pop(0))
+        if all(s is None for s in self.slots):
+            return
+        tokens = torch.from_numpy(self._slot_tokens()).to(self.device)
+        self.cache, logits = self._decode(self.params, self.cache, tokens)
+        self.steps += 1
+        if self.temperature <= 0.0:
+            next_tok = sample(logits[:, 0], None, 0.0).cpu().numpy()
+        else:
+            next_tok = np.zeros(len(self.slots), np.int64)
+            for i, req in enumerate(self.slots):
+                if req is not None:
+                    next_tok[i] = int(sample(logits[i, 0], self._request_generator(req),
+                                             self.temperature))
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            self.offsets[i] += 1
+            pos = int(self.offsets[i])
+            if pos >= len(req.prompt):  # generating
+                req.output.append(int(next_tok[i]))
+                if (len(req.output) >= req.max_new_tokens
+                        or int(next_tok[i]) == self.eos_id
+                        or pos >= self.max_len - 1):
+                    req.done = True
+                    self.finished.append(req)
+                    self.slots[i] = None
+
+    def run_until_done(self, max_steps: int = 10_000) -> List[Request]:
+        while (self.queue or any(self.slots)) and self.steps < max_steps:
+            self.step()
+        return self.finished
+
+    # ---------------------------------------------------- slot migration --
+    # One slot's cache region is a self-contained request state: these two
+    # helpers are the engine-level half of the fleet's kv-ship migration
+    # strategy -- export on the source engine, import into any free slot of
+    # a destination engine built from the same config/params/rng_seed, and
+    # decoding continues bit-identically.
+    def export_slot(self, slot: int) -> Dict:
+        """Deep-copy one slot's KV state + write offset.  The tensors are
+        clones: the engine's cache is written in place, and the payload must
+        not change when the engine steps on."""
+        c = self.cache
+        return {
+            "index": c["index"][slot].clone(),
+            "blocks": tree_map(lambda x: x[:, slot].clone(), c["blocks"]),
+            "tail": tree_map(lambda x: x[slot].clone(), c["tail"]),
+            "offset": int(self.offsets[slot]),
+        }
+
+    def import_slot(self, slot: int, state: Dict) -> None:
+        """Install an `export_slot` payload into ``slot`` (overwrites it)."""
+        c = self.cache
+        c["index"][slot] = state["index"].to(self.device)
+        tree_map(lambda x, v: x[:, slot].copy_(v), c["blocks"], state["blocks"])
+        tree_map(lambda x, v: x[slot].copy_(v), c["tail"], state["tail"])
+        self.offsets[slot] = state["offset"]
