@@ -4,16 +4,20 @@
     python3 chip_smoke.py            # every phase; needs one CUDA device
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), holds
-each against its plain PyTorch version on the card, then serves
-granite-3-2b (full width, all 40 layers, bf16, random weights from seed 0)
-through `repro_torch.serve.ServeEngine`, and checks that the serving path
-really went through the kernels, that the kernels' path agrees with the
-plain path, and that a live KV-cache slot moved to another engine goes on
-decoding bit-identically.  Prints one JSON object a line; the last line is
-``{"ok": true, "device": {...}}``.  Exits non-zero, without that line, when
-there is no CUDA device or any phase fails: nothing is retried on the CPU.
+each against its plain PyTorch version on the card, then drives the port's
+two paths with granite-3-2b (full width, all 40 layers, bf16, random
+weights from seed 0): it serves requests through
+`repro_torch.serve.ServeEngine`, and it trains for a few steps through
+`repro_torch.train.Trainer` (2 x 4096 tokens a step, AdamW, block remat).
+It checks that each path really went through its kernels (launch counts
+equal to their per-step formulas), that the kernels' path agrees with the
+plain path for serving and for training, and that a live KV-cache slot
+moved to another engine goes on decoding bit-identically.  Prints one JSON
+object a line; the last line is ``{"ok": true, "device": {...}}``.  Exits
+non-zero, without that line, when there is no CUDA device or any phase
+fails: nothing is retried on the CPU.
 
-``--only build,kernels`` runs some phases alone (then no final line);
+``--only build,kernels,train`` runs some phases alone (then no final line);
 ``--verbose-build`` prints the compiler's messages.
 """
 
@@ -22,6 +26,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -29,15 +34,25 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-PHASES = ("build", "kernels", "serve", "timing", "path_vs_plain", "migrate")
+PHASES = ("build", "kernels", "serve", "train", "timing", "path_vs_plain",
+          "train_vs_plain", "migrate")
 
 # Published peaks of one H100 SXM (dense): device memory and arithmetic.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5), "bfloat16": dict(atol=5e-2, rtol=5e-2)}
+# flash_attention's output and lse.  Both bf16 outputs are one rounding of
+# nearly equal fp32 values, so a right kernel is within one bf16 step of
+# the plain output (2^-7 of it at most); 5e-3 is a fifth of a typical late
+# row's |out| at the training shape.  The lse is fp32 in both.
+FLASH_TOL = {"float32": {"out": TOL["float32"], "lse": TOL["float32"]},
+             "bfloat16": {"out": dict(atol=5e-3, rtol=1e-2), "lse": dict(atol=1e-3, rtol=0.0)}}
 
 GRANITE_SLOTS, GRANITE_MAX_LEN = 8, 4096
+# The train phase: sequences x tokens a step, loss chunk, steps.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_LOSS_CHUNK, TRAIN_STEPS = 2, 4096, 1024, 6
+GRAD_TOL = dict(atol=1e-4, rtol=1e-4)    # fp32 gradients, summed in another order
 
 
 def emit(**obj):
@@ -54,9 +69,10 @@ def require(cond, what):
 
 
 # --------------------------------------------------------------- helpers --
-def errors(torch, got, want, dtype_name):
-    """(max abs error, max of error over its allowance) in fp32."""
-    tol = TOL[dtype_name]
+def errors(torch, got, want, dtype_name, tol=None):
+    """(max abs error, max of error over its allowance) in fp32; the
+    allowance is ``tol``, by default `TOL` of the dtype."""
+    tol = tol or TOL[dtype_name]
     g, w = got.float(), want.float()
     err = (g - w).abs()
     allowed = tol["atol"] + tol["rtol"] * w.abs()
@@ -200,8 +216,84 @@ def ragged_lens(torch, B, Sk, device):
     return torch.tensor(lens[:B] if B > 1 else [Sk - 7], dtype=torch.int32, device=device)
 
 
+# (name, B, Sq, Sk, Hq, Hkv, D): the cases of tests/test_kernels.py::TestFlashAttention,
+# ragged lengths, and the train phase's shape.
+FLASH_CASES = [
+    ("mha", 1, 128, 128, 4, 4, 64), ("gqa4", 2, 256, 256, 8, 2, 64),
+    ("odd-heads-d32", 2, 256, 256, 6, 3, 32), ("mqa-d128", 1, 512, 512, 4, 1, 128),
+    ("ragged", 1, 1000, 1000, 8, 2, 64), ("sq<sk", 2, 77, 300, 4, 2, 64),
+]
+FLASH_TRAIN = ("granite-3-2b train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 8, 64)
+
+
+def flash_errors(torch, got, want, dt):
+    """(out error, out error over allowance, lse error, lse over allowance)."""
+    tol = FLASH_TOL[dt]
+    return (*errors(torch, got[0], want[0], dt, tol["out"]),
+            *errors(torch, got[1], want[1], dt, tol["lse"]))
+
+
+def check_flash(torch, checks, case, causal, dt, control=False):
+    """The kernel against its plain version.  With ``control``, also the
+    plain version with the last key tile (the kernel's 4096 / D keys)
+    dropped, which the same check must refuse."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    name, B, Sq, Sk, Hq, Hkv, D = case
+    dtype = getattr(torch, dt)
+    q = rand(torch, (B, Sq, Hq, D), dtype, 21, "cuda")
+    k = rand(torch, (B, Sk, Hkv, D), dtype, 22, "cuda")
+    v = rand(torch, (B, Sk, Hkv, D), dtype, 23, "cuda")
+    out, lse = flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v, causal)
+    require(out.shape == q.shape and out.dtype == q.dtype and lse.dtype == torch.float32
+            and lse.shape == (B, Hkv, Hq // Hkv, Sq), f"flash_attention {name}: shape/dtype")
+    err, ratio, lerr, lratio = flash_errors(torch, (out, lse), want, dt)
+    row = dict(kernel="flash_attention", case=name, shape=[B, Sq, Sk, Hq, Hkv, D],
+               causal=causal, dtype=dt, max_abs_err=err, err_over_tol=ratio,
+               lse_max_abs_err=lerr, lse_err_over_tol=lratio, tol=FLASH_TOL[dt])
+    checks.append(row)
+    require(ratio <= 1.0 and lratio <= 1.0,
+            f"flash_attention {name} causal={causal} {dt}: error {err} / lse {lerr}")
+    if control:
+        tile = 4096 // D
+        wrong = flash_attention_plain(q, k[:, :Sk - tile], v[:, :Sk - tile], causal)
+        _, c_ratio, _, c_lratio = flash_errors(torch, wrong, want, dt)
+        row["control_last_key_tile_dropped"] = dict(keys=tile, err_over_tol=c_ratio,
+                                                    lse_err_over_tol=c_lratio)
+        require(max(c_ratio, c_lratio) > 1.0,
+                f"flash_attention {name}: the check passes a dropped key tile")
+    return err
+
+
+def check_flash_grad(torch, checks):
+    """The training autograd Function (CUDA forward, ported backward) against
+    autograd through the plain attention, fp32."""
+    from repro_torch.models.attention import flash_attention_jnp, gqa_reference
+    B, S, Hq, Hkv, D, chunk = 2, 300, 8, 2, 64, 128         # ragged last chunk
+    base = [rand(torch, shape, torch.float32, 31 + i, "cuda")
+            for i, shape in enumerate([(B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)])]
+    w = rand(torch, (B, S, Hq, D), torch.float32, 34, "cuda")
+    grads = []
+    for fn in (lambda q, k, v: flash_attention_jnp(q, k, v, True, chunk, chunk),
+               lambda q, k, v: gqa_reference(q, k, v, True)):
+        leaves = [t.clone().requires_grad_(True) for t in base]
+        grads.append(torch.autograd.grad((fn(*leaves) * w).sum(), leaves))
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, g, want in zip("qkv", *grads):
+        err = (g - want).abs()
+        ratio = float((err / (GRAD_TOL["atol"] + GRAD_TOL["rtol"] * want.abs())).max())
+        worst = max(worst, ratio)
+        require(ratio <= 1.0, f"flash_attention backward: d{name} differs by {float(err.max())}")
+    checks.append(dict(kernel="flash_attention", case="autograd Function vs gqa_reference",
+                       shape=[B, S, Hq, Hkv, D], chunk=chunk, dtype="float32",
+                       grad_err_over_tol=worst, tol=GRAD_TOL))
+
+
 def phase_kernels(torch, device):
     from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rmsnorm import rms_norm, rms_norm_plain
 
     checks = []
@@ -271,11 +363,21 @@ def phase_kernels(torch, device):
     require(torch.equal(out_p, out1[perm]), "decode_attention: result depends on the slot")
     checks.append(dict(kernel="decode_attention", case="rows permuted", bit_equal=True))
 
+    for case in FLASH_CASES:
+        for causal in (True, False):
+            for dt in ("float32", "bfloat16"):
+                check_flash(torch, checks, case, causal, dt)
+    check_flash(torch, checks, FLASH_TRAIN, True, "bfloat16", control=True)
+    torch.cuda.empty_cache()
+    check_flash_grad(torch, checks)
+
     # What the wrappers refuse.
     for bad in (lambda: rms_norm(q.half(), q.half()[0, 0, 0], 1e-5),
                 lambda: decode_attention(q.double(), k.double(), v.double(), lens),
                 lambda: decode_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2),
-                                         v, lens)):
+                                         v, lens),
+                lambda: flash_attention(k.double(), k.double(), k.double()),
+                lambda: flash_attention(k.transpose(1, 2).contiguous().transpose(1, 2), k, k)):
         try:
             bad()
         except (TypeError, ValueError):
@@ -391,16 +493,230 @@ def phase_serve(torch, device):
     return launches
 
 
+def train_batches(torch, cfg, device, n, seq, seed):
+    from repro_torch.data import DataConfig, SyntheticLM
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, global_batch=TRAIN_BATCH,
+                                  seq_len=seq, seed=seed))
+    return [{k: torch.from_numpy(v).to(device) for k, v in data.batch_at(i).items()}
+            for i in range(n)]
+
+
+def phase_train(torch, device):
+    """granite-3-2b at full width and depth through `Trainer.run`."""
+    import statistics
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rms_norm
+    from repro_torch.train import TrainerConfig, make_synthetic_trainer
+
+    cfg = get_config("granite-3-2b")
+    tcfg = TrainerConfig(steps=TRAIN_STEPS, log_every=10 ** 9, loss_chunk=TRAIN_LOSS_CHUNK)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = make_synthetic_trainer(cfg, tcfg, TRAIN_BATCH, TRAIN_SEQ, device=device)
+    state, _ = trainer.init_or_restore()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated()
+
+    rms_norm.launches = 0
+    flash_attention.launches = 0
+    t0 = time.perf_counter()
+    state = trainer.run(state=state)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"rms_norm": rms_norm.launches, "flash_attention": flash_attention.launches}
+    peak = torch.cuda.max_memory_allocated()
+
+    # A step: every block's attention in the forward and again in the remat
+    # recompute; two norms a block, forward and recompute, and the final norm.
+    per_step = {"flash_attention": 2 * cfg.n_layers, "rms_norm": 4 * cfg.n_layers + 1}
+    log = trainer.metrics_log
+    require(len(log) == TRAIN_STEPS and int(state["step"]) == TRAIN_STEPS,
+            "train: not every step ran")
+    require(all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in log),
+            "train: non-finite loss or gradient norm")
+    for name, n in per_step.items():
+        require(launches[name] == TRAIN_STEPS * n,
+                f"train: {name} launched {launches[name]} times, expected {TRAIN_STEPS} * {n}")
+    step_s = statistics.median(r["dt_s"] for r in log[1:])
+
+    # How much of a step the card works: device time of one more step from
+    # the profiler against the host-clock time of the same step.
+    batch = train_batches(torch, cfg, device, 1, TRAIN_SEQ, seed=7)[0]
+    box = {"state": state}
+
+    def one_step():
+        box["state"], metrics = trainer._step(box["state"], batch)
+        return metrics
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_step()
+    torch.cuda.synchronize()
+    step_call_s = time.perf_counter() - t0
+    step_device_ms, top = profile_device_time(torch, one_step, iters=1)
+    n_params = sum(t.numel() for t in _leaves(state["params"]))
+    emit(phase="train", model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+         params=n_params, dtype=cfg.compute_dtype, remat=cfg.remat, optimizer=cfg.optimizer,
+         batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, loss_chunk=TRAIN_LOSS_CHUNK, steps=TRAIN_STEPS,
+         per_step=[dict(step=r["step"], loss=r["loss"], grad_norm=r["grad_norm"],
+                        seconds=r["dt_s"]) for r in log],
+         seconds=seconds, median_step_seconds=step_s,
+         tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s,
+         step_device_ms=step_device_ms, step_call_ms=step_call_s * 1e3,
+         device_idle_share=(None if step_device_ms is None
+                            else 1.0 - step_device_ms / (step_call_s * 1e3)),
+         step_top_kernels=top, launches=launches, launches_per_step=per_step,
+         peak_memory_bytes=peak, setup_seconds=setup_s, setup_peak_memory_bytes=setup_peak)
+    del trainer, state, box, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+# train_vs_plain: how far the kernels' run may be from the plain run.  The
+# loss is held absolutely, the gradient norm relatively, and the gradients
+# and the run's update (end minus start) of every parameter leaf by
+# ||kernel - plain|| / ||plain||: the first step's gradients, taken at the
+# same parameters on both paths, most tightly; later steps' gradients
+# start from parameters the first update already moved apart.  AdamW's
+# first steps move an element by about the learning rate whatever its
+# gradient's size, so an element whose gradient is near 0 may move either
+# way on the two paths: the update is held more loosely than the gradient.
+TRAIN_TOL = dict(loss_atol=1e-3, grad_norm_rtol=1e-2, grad_rel=5e-2, later_grad_rel=0.1,
+                 update_rel=0.25)
+
+
+def rel_err(torch, got, want):
+    """||got - want|| / ||want|| in fp32 (0 when both are 0)."""
+    diff = float(torch.linalg.vector_norm(got.float() - want.float()))
+    norm = float(torch.linalg.vector_norm(want.float()))
+    return diff / norm if norm > 0 else (0.0 if diff == 0 else math.inf)
+
+
+def train_twice(torch, cfg, device, seq, n_steps):
+    """``n_steps`` train steps from one state, on the kernels and under
+    `use_plain()`.  Returns (start parameters, {"kernel" | "plain":
+    (parameters, [(loss, grad norm) a step], [gradients a step])}, launches
+    of (flash_attention, rms_norm) in the kernels' run)."""
+    from repro_torch._tree import tree_map
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rms_norm
+    from repro_torch.train import Optimizer, init_state, make_optimizer, make_train_step
+
+    opt = make_optimizer("adamw", lr=1e-3, warmup=1, total_steps=n_steps)
+    seen = []
+
+    def update(grads, state, params):         # keeps each step's gradients
+        seen.append(tree_map(lambda g: g.clone(), grads))
+        return opt.update(grads, state, params)
+
+    step_fn = make_train_step(cfg, Optimizer(opt.name, opt.init, update),
+                              loss_chunk=TRAIN_LOSS_CHUNK)
+    start = init_state(torch.Generator(device).manual_seed(0), cfg, opt, device=device)
+    batches = train_batches(torch, cfg, device, n_steps, seq, seed=1)
+
+    def run():
+        seen.clear()
+        state = tree_map(lambda t: t.clone(), start)
+        metrics = [step_fn(state, b)[1] for b in batches]
+        return (state["params"], [(float(m["loss"]), float(m["grad_norm"])) for m in metrics],
+                list(seen))
+
+    count = lambda: (flash_attention.launches, rms_norm.launches)
+    before = count()
+    runs = {"kernel": run()}
+    used = tuple(n - b for n, b in zip(count(), before))
+    with ops.use_plain():
+        runs["plain"] = run()
+    require(tuple(n - b for n, b in zip(count(), before)) == used,
+            "train_vs_plain: use_plain() still launched a kernel")
+    return start["params"], runs, used
+
+
+def compare_train(torch, start, kern, plain):
+    """The kernels' run against the plain run, in `TRAIN_TOL`'s measures,
+    each with the leaf where it is largest."""
+    from repro_torch._tree import tree_items, tree_leaves
+    (kp, km, kg), (pp, pm, pg) = kern, plain
+
+    def worst(triples):
+        return max(((rel_err(torch, a, b), path) for path, a, b in triples),
+                   default=(0.0, None))
+
+    def grads(first, last):
+        return worst((f"step {i}: {path}", a, b)
+                     for i, (gk, gp) in enumerate(zip(kg[first:last], pg[first:last]), first)
+                     for (path, a), (_, b) in zip(tree_items(gk), tree_items(gp)))
+
+    grad, grad_at = grads(0, 1)
+    later, later_at = grads(1, None)
+    upd, upd_at = worst((path, a.float() - s.float(), b.float() - s.float())
+                        for (path, a), (_, b), s in zip(tree_items(kp), tree_items(pp),
+                                                        tree_leaves(start)))
+    return dict(finite=all(math.isfinite(x) for step in km for x in step),
+                loss_abs=max(abs(k[0] - p[0]) for k, p in zip(km, pm)),
+                grad_norm_rel=max(abs(k[1] - p[1]) / p[1] for k, p in zip(km, pm)),
+                grad_rel=grad, grad_rel_at=grad_at, later_grad_rel=later,
+                later_grad_rel_at=later_at, update_rel=upd, update_rel_at=upd_at)
+
+
+def train_agrees(m):
+    t = TRAIN_TOL
+    return (m["finite"] and m["loss_abs"] <= t["loss_atol"]
+            and m["grad_norm_rel"] <= t["grad_norm_rtol"]
+            and m["grad_rel"] <= t["grad_rel"] and m["later_grad_rel"] <= t["later_grad_rel"]
+            and m["update_rel"] <= t["update_rel"])
+
+
+def phase_train_vs_plain(torch, device, cfg4):
+    """Two train steps of the 4-layer cut from one state, on the kernels and
+    under `use_plain()`: losses, gradient norms, every leaf's gradients and
+    update.  Two controls must fail the same check: no update at all, and
+    the gradients of the norms' scales zeroed (what an `rms_norm` backward
+    that dropped dscale would give)."""
+    def zero_scales(tree):
+        if not isinstance(tree, dict):
+            return tree
+        return {k: torch.zeros_like(v) if k == "scale" else zero_scales(v)
+                for k, v in tree.items()}
+
+    seq, n_steps = 2048, 2
+    start, runs, used = train_twice(torch, cfg4, device, seq, n_steps)
+    require(used == (n_steps * 2 * cfg4.n_layers, n_steps * (4 * cfg4.n_layers + 1)),
+            f"train_vs_plain: kernels not on the path ({used})")
+    kern, plain = runs["kernel"], runs["plain"]
+    got = compare_train(torch, start, kern, plain)
+    no_dscale = [zero_scales(grads) for grads in kern[2]]
+    controls = {"no update": compare_train(torch, start, (start, *kern[1:]), plain),
+                "norm scales' gradients zeroed": compare_train(
+                    torch, start, (kern[0], kern[1], no_dscale), plain)}
+    emit(phase="train_vs_plain", layers=cfg4.n_layers, batch=TRAIN_BATCH, seq_len=seq,
+         steps=n_steps, kernel=kern[1], plain=plain[1], measures=got, tol=TRAIN_TOL,
+         controls={name: dict(m, fails=not train_agrees(m)) for name, m in controls.items()},
+         launches={"flash_attention": used[0], "rms_norm": used[1]})
+    require(train_agrees(got), f"train_vs_plain: the kernels' run is off: {got}")
+    for name, m in controls.items():
+        require(not train_agrees(m), f"train_vs_plain: the control '{name}' passed")
+    del runs, kern, plain, start, no_dscale
+    torch.cuda.empty_cache()
+
+
 def _leaves(tree):
     from repro_torch._tree import tree_leaves
     return tree_leaves(tree)
 
 
 def phase_timing(torch, device, launches):
-    """Times of the two kernels at the serving path's shapes, beside their
-    plain versions, one library call each, and the card's bound."""
+    """Times of the kernels at their paths' shapes (serving for rms_norm and
+    decode_attention, training for flash_attention), beside their plain
+    versions, one library call each, and the card's bound.  ``launches``
+    holds each path's counts: {"serve": {...}, "train": {...}}."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import decode_attention, decode_attention_plain
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
     from repro_torch.kernels.rmsnorm import rms_norm, rms_norm_plain
 
     out = []
@@ -427,8 +743,10 @@ def phase_timing(torch, device, launches):
     got = rms_norm(x, scale, 1e-5)
     err, ratio = errors(torch, got, rms_norm_plain(x, scale, 1e-5), dt)
     require(ratio <= 1.0, f"timing: rms_norm error {err} beyond tolerance")
+    serve, train = launches["serve"], launches["train"]
     out.append(dict(name="rms_norm", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
-                    replaces="src/repro/kernels/rmsnorm.py:24", launches=launches["rms_norm"],
+                    replaces="src/repro/kernels/rmsnorm.py:24", launches=serve["rms_norm"],
+                    launches_by_path={"serve": serve["rms_norm"], "train": train["rms_norm"]},
                     max_abs_err=err, tol=TOL[dt], **norm_times(x, scale),
                     library="torch.nn.functional.rms_norm", dtype=dt))
     # The same kernel where bytes, not the launch, set the time.
@@ -482,10 +800,43 @@ def phase_timing(torch, device, launches):
     out.append(dict(name="decode_attention", route="cuda",
                     source="src/repro_torch/csrc/decode_attention.cu",
                     replaces="src/repro/kernels/decode_attention.py:59",
-                    launches=launches["decode_attention"], **full,
+                    launches=serve["decode_attention"], **full,
                     library="torch.nn.functional.scaled_dot_product_attention(enable_gqa)",
                     shape=[B, Sk, Hq, Hkv, D], dtype=dt, kv_len="every slot full",
                     at_served_lengths=served))
+    del ks, vs, k, v
+    torch.cuda.empty_cache()
+
+    # flash_attention: the train phase's shape, causal.
+    _, B, S, _, Hq, Hkv, D = FLASH_TRAIN
+    q = rand(torch, (B, S, Hq, D), dtype, 41, device)
+    k = rand(torch, (B, S, Hkv, D), dtype, 42, device)
+    v = rand(torch, (B, S, Hkv, D), dtype, 43, device)
+    err, ratio, _, lratio = flash_errors(torch, flash_attention(q, k, v, True),
+                                         flash_attention_plain(q, k, v, True), dt)
+    require(ratio <= 1.0 and lratio <= 1.0, f"timing: flash_attention error {err} beyond tolerance")
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    ms, call = timer(lambda: flash_attention(q, k, v, True), iters=20)
+    plain, plain_call = timer(lambda: flash_attention_plain(q, k, v, True), iters=3)
+    lib, lib_call = (timer(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), iters=20) if sdpa_gqa else (None, None))
+    ms2, call2 = timer(lambda: flash_attention(q, k, v, True), iters=20)
+    pairs = B * S * (S + 1) // 2                     # (query, key) pairs under the mask
+    flops = 4 * pairs * Hq * D                       # q.k and p.v, a multiply-add each
+    # q, k, v read once; out (q's size) and the fp32 lse written once.
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + B * Hq * S * 4
+    b_ms, b_by = bound(nbytes, flops, dt)
+    out.append(dict(name="flash_attention", route="cuda",
+                    source="src/repro_torch/csrc/flash_attention.cu",
+                    replaces="src/repro/kernels/flash_attention.py:68",
+                    launches=train["flash_attention"], max_abs_err=err, tol=FLASH_TOL[dt],
+                    ms=min(ms, ms2), plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib, call_ms=min(call, call2), plain_call_ms=plain_call,
+                    library_call_ms=lib_call, bytes=nbytes, flops=flops,
+                    achieved_tflops=flops / (min(ms, ms2) * 1e-3) / 1e12,
+                    library="torch.nn.functional.scaled_dot_product_attention"
+                            "(is_causal, enable_gqa)",
+                    shape=[B, S, Hq, Hkv, D], dtype=dt, causal=True))
     return out
 
 
@@ -606,22 +957,29 @@ def main(argv=None):
             phase_build(args.verbose_build)
         if run("kernels"):
             phase_kernels(torch, device)
-        launches = {"rms_norm": 0, "decode_attention": 0}
+        launches = {"serve": {"rms_norm": 0, "decode_attention": 0},
+                    "train": {"rms_norm": 0, "flash_attention": 0}}
         if run("serve"):
-            launches = phase_serve(torch, device)
+            launches["serve"] = phase_serve(torch, device)
+        if run("train"):
+            launches["train"] = phase_train(torch, device)
         if run("timing"):
             kernels = phase_timing(torch, device, launches)
             if not only:
-                for entry in kernels:
-                    require(entry["launches"] > 0, f"{entry['name']} was not launched "
-                                                   "by the serving path")
+                for path, counts in launches.items():
+                    for name, n in counts.items():
+                        require(n > 0, f"{name} was not launched by the {path} path")
+        cfg4 = dataclasses.replace(get_config("granite-3-2b"), n_layers=4)
         if run("path_vs_plain") or run("migrate"):
-            cfg4 = dataclasses.replace(get_config("granite-3-2b"), n_layers=4)
             params4 = build_model(torch, cfg4, device)
             if run("path_vs_plain"):
                 phase_path_vs_plain(torch, device, cfg4, params4)
             if run("migrate"):
                 phase_migrate(torch, device, cfg4, params4)
+            del params4
+            torch.cuda.empty_cache()
+        if run("train_vs_plain"):
+            phase_train_vs_plain(torch, device, cfg4)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

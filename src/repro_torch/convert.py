@@ -1,4 +1,5 @@
-"""Carry parameters and caches between the JAX package and the port.
+"""Carry parameters, caches and train states between the JAX package and
+the port.
 
 The JAX side hands over its pytree as numpy arrays
 (``jax.tree.map(np.asarray, tree)``); this module never imports JAX.  The
@@ -32,6 +33,13 @@ def params_from_jax(tree: Any, device="cuda", dtype: Optional[torch.dtype] = Non
     """A parameter pytree of numpy arrays -> the port's tree of tensors on
     ``device``; floating leaves are cast to ``dtype`` when one is given."""
     return tree_map(lambda a: _to_tensor(a, device, dtype), tree)
+
+
+def state_from_jax(tree: Any, device="cuda"):
+    """A train state (``params``, ``opt``, ``step``) of numpy arrays ->
+    tensors.  Every leaf keeps its type bit for bit: bf16 / fp32 weights and
+    moments, the int8 blocks of `adam8bit`, the int32 step counters."""
+    return tree_map(lambda a: _to_tensor(a, device, None), tree)
 
 
 def cache_from_jax(tree: Any, device="cuda", dtype: Optional[torch.dtype] = None):

@@ -122,6 +122,8 @@ SIGNATURES = {
     # q, k, v, kv_len, out, part_m, part_l, part_acc,
     # B, Sk, Hq, Hkv, D, chunk, n_splits, is_bf16, stream
     "repro_decode_attention": [_PTR] * 8 + [_INT] * 8 + [_PTR],
+    # q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, D, causal, is_bf16, stream
+    "repro_flash_attention": [_PTR] * 5 + [_INT] * 8 + [_PTR],
 }
 
 

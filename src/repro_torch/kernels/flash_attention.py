@@ -1,0 +1,92 @@
+"""GQA flash-attention forward: wrapper of ``csrc/flash_attention.cu``.
+
+Replaces the Pallas kernel `repro.kernels.flash_attention.flash_attention`,
+and returns what `repro.models.attention._flash_fwd_math` returns: the
+output and the fp32 log-sum-exp laid out ``(B, Hkv, G, Sq)``, which the
+training backward reads instead of storing probabilities.  At the training
+shape (B 2, S 4096, Hq 32 over Hkv 8, D 64, bf16, causal) it is bound by
+operations on an H100: ``4 * B * Hq * D * S**2 / 2`` = 1.37e11, 0.139 ms at
+the bf16 dense peak, against about 85 MB moved (0.025 ms).  The kernel
+reads q, k and v in their native ``(B, S, H, D)`` layout, masks ragged
+edges instead of asking the lengths to divide the blocks, and skips key
+tiles wholly above the causal diagonal.  Its products run on the fp32
+cores, not the tensor cores (see the source's note).
+
+Plain version: `flash_attention_plain`, which is `gqa_reference` plus the
+log-sum-exp of the same masked scores.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.models.attention import NEG_INF, gqa_reference
+
+from . import _build
+
+_DTYPES = (torch.float32, torch.bfloat16)
+_D_HEADS = (32, 64, 128)
+
+
+def flash_attention_plain(q, k, v, causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The same function in plain PyTorch: (out in q's type, fp32 lse
+    ``(B, Hkv, G, Sq)``)."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    out = gqa_reference(q, k, v, causal)
+    qg = q.reshape(B, Sq, Hkv, Hq // Hkv, D)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(), k.float()) / (D ** 0.5)
+    if causal:
+        mask = torch.arange(Sq, device=q.device)[:, None] >= torch.arange(Sk, device=q.device)
+        scores = scores.masked_fill(~mask, NEG_INF)
+    return out, torch.logsumexp(scores, dim=-1)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q ``(B, Sq, Hq, D)`` against k, v ``(B, Sk, Hkv, D)``; returns (out
+    ``(B, Sq, Hq, D)`` in q's type, lse ``(B, Hkv, Hq // Hkv, Sq)`` fp32).
+    Causal means key j is seen by query i when ``j <= i``.  A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel (on the
+    current stream, without synchronising) or raises."""
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attention takes float32 or bfloat16, not {q.dtype}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: q is {q.dtype}, k / v are {k.dtype} / {v.dtype}")
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    B, Sq, Hq, D = q.shape
+    Bk, Sk, Hkv, Dk = k.shape
+    if Bk != B or Dk != D or Hkv == 0 or Hq % Hkv or Sk == 0:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit k / v "
+                         f"{tuple(k.shape)}")
+    if not q.is_cuda:
+        return flash_attention_plain(q, k, v, causal)
+
+    if D not in _D_HEADS:
+        raise ValueError(f"flash_attention: d_head {D} not supported (takes {_D_HEADS})")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_attention: q, k and v lie on different devices")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention: q, k and v must be contiguous")
+    if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("flash_attention: q, k and v must be 16-byte aligned")
+    out = torch.empty_like(q)
+    lse = torch.empty((B, Hkv, Hq // Hkv, Sq), dtype=torch.float32, device=q.device)
+    if q.numel() == 0:
+        return out, lse
+    with torch.cuda.device(q.device):
+        code = _build.library().repro_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            B, Sq, Sk, Hq, Hkv, D, int(causal), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(code, "flash_attention")
+    flash_attention.launches += 1
+    return out, lse
+
+
+#: Times the kernel was launched (never counts the plain version).
+flash_attention.launches = 0

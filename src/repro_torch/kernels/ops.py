@@ -12,6 +12,7 @@ from __future__ import annotations
 import contextlib
 
 from . import decode_attention as _decode
+from . import flash_attention as _flash
 from . import rmsnorm as _rmsnorm
 
 _force_plain = False
@@ -38,3 +39,10 @@ def decode_attention(q, k_cache, v_cache, kv_len):
     if _force_plain:
         return _decode.decode_attention_plain(q, k_cache, v_cache, kv_len)
     return _decode.decode_attention(q, k_cache, v_cache, kv_len)
+
+
+def flash_attention(q, k, v, causal: bool = True):
+    """(out, lse): see `repro_torch.kernels.flash_attention`."""
+    if _force_plain:
+        return _flash.flash_attention_plain(q, k, v, causal)
+    return _flash.flash_attention(q, k, v, causal)

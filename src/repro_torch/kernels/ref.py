@@ -8,6 +8,11 @@ from repro_torch.models.attention import gqa_reference
 from repro_torch.models.layers import rms_norm as _rms_norm_model
 
 
+def flash_attention_ref(q, k, v, causal: bool = True):
+    """(B,Sq,Hq,D) GQA attention, fp32 softmax (the output alone)."""
+    return gqa_reference(q, k, v, causal=causal)
+
+
 def decode_attention_ref(q, k_cache, v_cache, kv_len):
     """One-token decode against a (B,Sk,Hkv,D) cache with valid prefix."""
     return gqa_reference(q, k_cache, v_cache, causal=False, kv_len=kv_len)

@@ -1,4 +1,4 @@
-"""Model substrate of the torch port: the dense GQA decoder path."""
+"""Model substrate of the torch port: the dense GQA decoder, for serving and training."""
 
 from .config import (  # noqa: F401
     ALL_SHAPES,
@@ -16,6 +16,7 @@ from .transformer import (  # noqa: F401
     forward,
     init_cache,
     init_lm,
+    lm_loss,
     logits_fn,
     reset_slot,
     stack_layout,

@@ -1,16 +1,29 @@
 """Grouped-query self-attention with RoPE and a KV cache.
 
-`gqa_reference` is the plain implementation (fp32 softmax).  Single-token
-decode against the cache goes through `repro_torch.kernels.ops
-.decode_attention`, which launches the hand-written CUDA kernel for a CUDA
-tensor and runs the plain version for a CPU tensor.
+`gqa_reference` is the plain implementation (fp32 softmax).  Two paths go
+through hand-written CUDA kernels when the tensors lie on the card:
+
+* single-token decode against the cache: `repro_torch.kernels.ops
+  .decode_attention`;
+* the full-sequence causal self-attention of training (no cache):
+  `flash_attention_jnp`, an autograd Function whose forward is
+  `repro_torch.kernels.ops.flash_attention` and whose backward is the port
+  of the reference's `_flash_bwd_rule` (recomputes each block's
+  probabilities from the saved log-sum-exp).
+
+The full-sequence causal path is `flash_attention_jnp` on either device:
+on a CPU tensor its forward is the plain online softmax `_flash_fwd_math`,
+so the CPU tests run the card's route at any length.  Prefill into a cache
+and non-causal attention stay on `_self_attention_math`, which routes as
+the reference's ``attn_impl="ref"`` does: `gqa_reference` below
+`CHUNKED_ATTN_THRESHOLD`, `flash_attention_jnp` or `chunked_attention`
+above it.
 
 The cache is written IN PLACE: `attention` returns the same ``k``/``v``
 tensors it was given, updated (the reference returns fresh arrays).
 
 Still to port from `repro.models.attention`: cross-attention
-(``kv_input``), M-RoPE, `prefill_cache`, and the chunked / flash branch of
-`_self_attention_math` (ROADMAP Queue 2 item 3).
+(``kv_input``) and M-RoPE (ROADMAP Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -81,8 +94,11 @@ def gqa_reference(
     kpos = torch.arange(Sk, device=q.device)
     mask = None  # broadcastable to (B, Sq, Sk); offsets/lengths may be per-row
     if causal:
-        qoff = _per_row(q_offset, B, q.device)
-        mask = (qoff[:, None, None] + qpos[None, :, None]) >= kpos[None, None, :]
+        if isinstance(q_offset, int):      # no device tensor, so no wait on the host
+            mask = ((qpos[:, None] + q_offset) >= kpos[None, :])[None]
+        else:
+            qoff = _per_row(q_offset, B, q.device)
+            mask = (qoff[:, None, None] + qpos[None, :, None]) >= kpos[None, None, :]
     if kv_len is not None:
         kvl = _per_row(kv_len, B, q.device)
         valid = kpos[None, None, :] < kvl[:, None, None]
@@ -94,17 +110,200 @@ def gqa_reference(
     return out.reshape(B, Sq, Hq, Dh).to(q.dtype)
 
 
-#: Sequences at or above this length need the online-softmax path.
+def _q_rows(t: torch.Tensor, i0: int, n: int, n_kv: int) -> torch.Tensor:
+    """Rows ``[i0, i0+n)`` of a ``(B, S, Hq, D)`` tensor as fp32
+    ``(B, Hkv, G*n, D)``: the G query heads of a kv head stacked, so that one
+    batched product serves the whole group."""
+    B, _, Hq, D = t.shape
+    blk = t[:, i0:i0 + n].float().reshape(B, n, n_kv, Hq // n_kv, D)
+    return blk.permute(0, 2, 3, 1, 4).reshape(B, n_kv, Hq // n_kv * n, D)
+
+
+def _kv_rows(t: torch.Tensor, j0: int, n: int) -> torch.Tensor:
+    """Rows ``[j0, j0+n)`` of a ``(B, S, Hkv, D)`` tensor as fp32 ``(B, Hkv, n, D)``."""
+    return t[:, j0:j0 + n].float().permute(0, 2, 1, 3)
+
+
+def _visible(i0: int, qc: int, j0: int, kc: int, causal: bool, q_offset, kv_len,
+             device) -> Optional[torch.Tensor]:
+    """Which (query, key) pairs of a block pair are seen, broadcastable to
+    ``(B, Hkv, G, qc, kc)``; None when all are.  ``q_offset`` and ``kv_len``
+    may be ints, 0-d or per-row ``(B,)`` tensors."""
+    # An int offset or length stays a Python number: a device tensor made
+    # from it is a host-to-device copy, which makes the host wait.
+    as_rows = lambda t: t if isinstance(t, int) else torch.as_tensor(
+        t, device=device).reshape(-1, 1, 1)
+    kpos = torch.arange(j0, j0 + kc, device=device)
+    mask = None
+    if causal:
+        qpos = torch.arange(i0, i0 + qc, device=device)[:, None]
+        mask = (as_rows(q_offset) + qpos) >= kpos
+    if kv_len is not None:
+        valid = kpos < as_rows(kv_len)
+        mask = valid if mask is None else mask & valid
+    if mask is None:
+        return None
+    while mask.ndim < 3:                   # (rows, qc or 1, kc)
+        mask = mask[None]
+    return mask[:, None, None]
+
+
+def _flash_fwd_math(q, k, v, causal, q_offset, kv_len, q_chunk, k_chunk):
+    """Online-softmax forward, block by block.  q: (B,Sq,Hq,D) -> (out in q's
+    type, lse (B,Hkv,G,Sq) fp32).  The plain counterpart of the CUDA
+    `flash_attention` kernel; a ragged last block is masked, so the chunks
+    need not divide the lengths."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = D ** -0.5
+    outs, lses = [], []
+    for i0 in range(0, Sq, q_chunk):
+        qc = min(q_chunk, Sq - i0)
+        qb = _q_rows(q, i0, qc, Hkv)                              # (B,kv,G*qc,D)
+        m = torch.full((B, Hkv, G * qc), NEG_INF, dtype=torch.float32, device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros_like(qb)
+        for j0 in range(0, Sk, k_chunk):
+            kc = min(k_chunk, Sk - j0)
+            s = (qb @ _kv_rows(k, j0, kc).transpose(-1, -2)) * scale
+            mask = _visible(i0, qc, j0, kc, causal, q_offset, kv_len, q.device)
+            if mask is not None:
+                s = s.view(B, Hkv, G, qc, kc).masked_fill(~mask, NEG_INF).view(s.shape)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + p @ _kv_rows(v, j0, kc)
+            m = m_new
+        l = l.clamp_min(1e-30)
+        outs.append((acc / l[..., None]).view(B, Hkv, G, qc, D))
+        lses.append((m + torch.log(l)).view(B, Hkv, G, qc))
+    out = torch.cat(outs, dim=3).permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D)
+    return out.to(q.dtype), torch.cat(lses, dim=3)
+
+
+def chunked_attention(q, k, v, *, causal, q_offset=0, kv_len=None,
+                      q_chunk: int = 1024, k_chunk: int = 1024):
+    """Online-softmax attention for the prefill paths, which may carry
+    offsets and lengths (training uses `flash_attention_jnp`)."""
+    q_chunk = min(q_chunk, q.shape[1])
+    k_chunk = min(k_chunk, k.shape[1])
+    if q.shape[1] % q_chunk or k.shape[1] % k_chunk:
+        return gqa_reference(q, k, v, causal, q_offset, kv_len)
+    out, _ = _flash_fwd_math(q, k, v, causal, q_offset, kv_len, q_chunk, k_chunk)
+    return out
+
+
+# ---------------------------------------------------------- flash (train) --
+def _flash_bwd_rule(causal, q_chunk, k_chunk, res, dout):
+    """The reference's flash backward: a dq pass (over q blocks, each summing
+    over k blocks) and a dk/dv pass (over k blocks, each summing over q
+    blocks), every block's probabilities recomputed from the saved
+    log-sum-exp.  At most one block pair's ``(B, Hkv, G*qc, kc)`` fp32
+    scores and their gradient live at a time.  Block pairs wholly above the
+    causal diagonal contribute exact zeros and are skipped."""
+    q, k, v, out, lse = res
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = D ** -0.5
+    # D_i = sum_d dout * out, per query row: (B, Hkv, G, Sq).
+    delta = (dout.float() * out.float()).sum(-1).view(B, Sq, Hkv, G).permute(0, 2, 3, 1)
+    qs = [(i0, min(q_chunk, Sq - i0)) for i0 in range(0, Sq, q_chunk)]
+    ks = [(j0, min(k_chunk, Sk - j0)) for j0 in range(0, Sk, k_chunk)]
+    qb = [_q_rows(q, i0, qc, Hkv) for i0, qc in qs]
+    dob = [_q_rows(dout, i0, qc, Hkv) for i0, qc in qs]
+    lseb = [lse[..., i0:i0 + qc].reshape(B, Hkv, G * qc, 1) for i0, qc in qs]
+    dlb = [delta[..., i0:i0 + qc].reshape(B, Hkv, G * qc, 1) for i0, qc in qs]
+    kb = [_kv_rows(k, j0, kc) for j0, kc in ks]
+    vb = [_kv_rows(v, j0, kc) for j0, kc in ks]
+
+    def pairs(a, b):
+        """(p, ds) of q block a against k block b, or None above the diagonal."""
+        (i0, qc), (j0, kc) = qs[a], ks[b]
+        if causal and j0 > i0 + qc - 1:
+            return None
+        s = torch.matmul(qb[a], kb[b].transpose(-1, -2)).mul_(scale)
+        if causal:
+            mask = _visible(i0, qc, j0, kc, True, 0, None, q.device)
+            s.view(B, Hkv, G, qc, kc).masked_fill_(~mask, NEG_INF)
+        p = s.sub_(lseb[a]).exp_()
+        ds = (dob[a] @ vb[b].transpose(-1, -2)).sub_(dlb[a]).mul_(p)
+        return p, ds
+
+    # Pass 1 -- dq: for each q block, sum over the k blocks.
+    dq = torch.empty_like(q)
+    for a, (i0, qc) in enumerate(qs):
+        acc = torch.zeros_like(qb[a])
+        for b in range(len(ks)):
+            pd = pairs(a, b)
+            if pd is not None:
+                acc += (pd[1] @ kb[b]) * scale
+        dq[:, i0:i0 + qc] = acc.view(B, Hkv, G, qc, D).permute(0, 3, 1, 2, 4).reshape(
+            B, qc, Hq, D)
+
+    # Pass 2 -- dk/dv: for each k block, sum over the q blocks.
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    for b, (j0, kc) in enumerate(ks):
+        dk_acc, dv_acc = torch.zeros_like(kb[b]), torch.zeros_like(vb[b])
+        for a in range(len(qs)):
+            pd = pairs(a, b)
+            if pd is not None:
+                p, ds = pd
+                dv_acc += p.transpose(-1, -2) @ dob[a]
+                dk_acc += (ds.transpose(-1, -2) @ qb[a]) * scale
+        dk[:, j0:j0 + kc] = dk_acc.permute(0, 2, 1, 3)
+        dv[:, j0:j0 + kc] = dv_acc.permute(0, 2, 1, 3)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: the CUDA `flash_attention` kernel for a CUDA tensor (its
+    plain version under `kernels.ops.use_plain()`), `_flash_fwd_math` for a
+    CPU tensor; both give (out, lse).  Backward: `_flash_bwd_rule`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_chunk, k_chunk):
+        if q.is_cuda:
+            from repro_torch.kernels import ops as kops
+            out, lse = kops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                                            causal)
+        else:
+            out, lse = _flash_fwd_math(q, k, v, causal, 0, None, q_chunk, k_chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.config = (causal, q_chunk, k_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        dq, dk, dv = _flash_bwd_rule(*ctx.config, ctx.saved_tensors, dout)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_jnp(q, k, v, causal: bool, q_chunk: int, k_chunk: int):
+    """Flash attention with a flash *backward* (the reference's name): the
+    backward recomputes each block's probabilities from the saved
+    log-sum-exp instead of storing them."""
+    return _FlashAttention.apply(q, k, v, causal, q_chunk, k_chunk)
+
+
+#: Sequences at or above this length use the online-softmax path.
 CHUNKED_ATTN_THRESHOLD = 2048
+_Q_CHUNK = 1024
+_K_CHUNK = 1024
 
 
 def _self_attention_math(q, k, v, causal, q_offset=0, kv_len=None):
     Sq, Sk = q.shape[1], k.shape[1]
     if Sq < CHUNKED_ATTN_THRESHOLD and Sk <= 2 * CHUNKED_ATTN_THRESHOLD:
         return gqa_reference(q, k, v, causal, q_offset, kv_len)
-    raise NotImplementedError(
-        f"attention over Sq={Sq}, Sk={Sk} needs the chunked / flash path, "
-        "which is still to port (ROADMAP Queue 2 item 3: flash_attention)")
+    qc, kc = min(_Q_CHUNK, Sq), min(_K_CHUNK, Sk)
+    static_extras = isinstance(q_offset, int) and kv_len is None
+    if static_extras and q_offset == 0 and Sq % qc == 0 and Sk % kc == 0:
+        return flash_attention_jnp(q, k, v, causal, qc, kc)
+    return chunked_attention(q, k, v, causal=causal, q_offset=q_offset,
+                             kv_len=kv_len, q_chunk=qc, k_chunk=kc)
 
 
 def _write_cache(cache_t: torch.Tensor, new: torch.Tensor, idx: torch.Tensor) -> None:
@@ -139,7 +338,8 @@ def attention(
     """Self-attention with optional KV cache.
 
     Modes:
-      * train/prefill: ``cache=None``, full-sequence causal.
+      * train/prefill: ``cache=None``, full-sequence causal, through
+        `flash_attention_jnp` (on the card, the CUDA flash kernel forward).
       * decode / prefill-into-cache: ``cache`` + ``cache_index`` given: write
         this step's k/v at ``cache_index`` (in place) and attend over the
         valid prefix.  With S == 1 this is `kernels.ops.decode_attention`.
@@ -174,8 +374,20 @@ def attention(
             # Prefill-into-cache: causal with absolute offset.
             out = _self_attention_math(q, k_cache, v_cache, causal=True,
                                        q_offset=idx, kv_len=kv_len)
+    elif causal:
+        # Training / full-sequence: `flash_attention_jnp` on either device
+        # (its forward is the CUDA kernel on the card), chunks of at most
+        # _Q_CHUNK for the backward (a ragged last chunk is masked).
+        chunk = min(_Q_CHUNK, S)
+        out = flash_attention_jnp(q, k, v, True, chunk, chunk)
     else:
         out = _self_attention_math(q, k, v, causal=causal)
 
     out = out.reshape(B, S, cfg.n_heads * cfg.d_head)
     return apply_linear(params["wo"], out, cd), new_cache
+
+
+def prefill_cache(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor, max_len: int) -> Dict:
+    """Extend prefill-computed k/v to a full-size cache (right-padded)."""
+    pad = (0, 0, 0, 0, 0, max_len - k.shape[1])
+    return {"k": torch.nn.functional.pad(k, pad), "v": torch.nn.functional.pad(v, pad)}

@@ -4,9 +4,9 @@ Plain functions on tensors; ``init_*`` builds nested dicts of tensors whose
 leaf names equal the reference's (`repro.models.layers`), ``w`` stored
 ``(d_in, d_out)``.  Random draws take an explicit ``torch.Generator``.
 
-Still to port from the reference module: `layer_norm`, M-RoPE,
-`rope_tables` and `bf16_cotangent_barrier` (training only).  The gelu and
-squared-ReLU activations live beside their one user, in `ffn.py`.
+Still to port from the reference module: `layer_norm`, M-RoPE and
+`rope_tables`.  The gelu and squared-ReLU activations live beside their one
+user, in `ffn.py`.
 """
 
 from __future__ import annotations
@@ -28,6 +28,24 @@ _DTYPES = {
 
 def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
+
+
+class _Bf16CotangentBarrier(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16)
+
+
+def bf16_cotangent_barrier(x: torch.Tensor) -> torch.Tensor:
+    """Identity whose backward casts the cotangent to bf16 -- placed on the
+    residual stream it stops fp32 gradient chains (born in fp32 softmax/norm
+    internals) from running through every matmul of the backward.  No-op
+    for non-bf16 inputs (fp32 configs)."""
+    return _Bf16CotangentBarrier.apply(x) if x.dtype == torch.bfloat16 else x
 
 
 def _device_of(generator: Optional[torch.Generator], device) -> torch.device:

@@ -12,7 +12,11 @@ shared block, the encoder and cross-attention, vision prefixes and hoisted
 RoPE tables raise `NotImplementedError` (ROADMAP Queue 1 items 10-13).
 
 `forward` covers full-sequence and cached (prefill-into-cache, decode) runs
-via the optional cache.  The cache's K and V are updated IN PLACE.
+via the optional cache, and runs under autograd when grad is enabled (the
+serving steps turn it off); `lm_loss` is the training loss.  The cache's K
+and V are updated IN PLACE.  Each stacked parameter leaf is unbound once a
+forward (`torch.unbind`, whose backward stacks the layers' gradients in one
+allocation) instead of being indexed layer by layer.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .._tree import tree_map
 from .attention import attention, init_attention, init_kv_cache
@@ -29,6 +34,7 @@ from .config import BLOCK_ATTN, ModelConfig
 from .ffn import ffn, init_ffn
 from .layers import (
     apply_linear,
+    bf16_cotangent_barrier,
     dtype_of,
     embed,
     fused_rms_norm,
@@ -167,11 +173,15 @@ def reset_slot(cache: Dict, slot) -> Dict:
 
 
 # --------------------------------------------------------------- forward --
+def _bar(x, cfg):
+    return bf16_cotangent_barrier(x) if cfg.bf16_cotangent else x
+
+
 def _attn_block(bp, x, cfg, positions, cache, index, encoder_out, kind,
                 rope_cache=None):
     if "cross" in bp or encoder_out is not None:
         raise NotImplementedError("cross-attention: ROADMAP Queue 1 item 13")
-    h = fused_rms_norm(x, bp["norm1"]["scale"], cfg.norm_eps)
+    h = _bar(fused_rms_norm(x, bp["norm1"]["scale"], cfg.norm_eps), cfg)
     a, attn_cache = attention(
         bp["attn"], h, cfg, positions, causal=True,
         cache=None if cache is None else cache["attn"],
@@ -180,11 +190,33 @@ def _attn_block(bp, x, cfg, positions, cache, index, encoder_out, kind,
     )
     x = x + a
     new_cache = None if cache is None else dict(cache, attn=attn_cache)
-    h2 = fused_rms_norm(x, bp["norm2"]["scale"], cfg.norm_eps)
+    h2 = _bar(fused_rms_norm(x, bp["norm2"]["scale"], cfg.norm_eps), cfg)
     return x + ffn(bp["ffn"], h2, cfg), new_cache
 
 
-@torch.no_grad()
+def _period(x, bp, cfg, kinds, positions, cslice, index):
+    """One period of the stack (the reference's scanned ``period_fn``)."""
+    if cfg.bf16_cotangent:
+        x = bf16_cotangent_barrier(x)
+    for j, kind in enumerate(kinds):
+        cj = None if cslice is None else cslice[f"pos{j}"]
+        x, _ = _attn_block(bp[f"pos{j}"], x, cfg, positions, cj, index, None, kind)
+    return x
+
+
+def _unstack(tree, n: int) -> List[Any]:
+    """A tree of stacked ``(n, ...)`` leaves as n trees of per-layer views,
+    each leaf unbound once."""
+    parts = []
+
+    def unbind(t):
+        parts.append(t.unbind(0))
+        return len(parts) - 1
+
+    where = tree_map(unbind, tree)
+    return [tree_map(lambda k: parts[k][i], where) for i in range(n)]
+
+
 def forward(
     params: Dict,
     tokens: Optional[torch.Tensor],       # (B, S) int; None if embeds given
@@ -198,20 +230,24 @@ def forward(
     decoding: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """Returns (hidden (B,S,d) -- NOT logits; see `logits_fn` --, new_cache,
-    aux_loss).  Inference only (runs without autograd).
+    aux_loss).  Runs under autograd when grad is enabled.
 
     ``new_cache`` shares its K/V tensors with ``cache``: they are written in
-    place; only ``index`` is a new tensor.  The config's ``remat``,
-    ``psum_barrier`` and ``bf16_cotangent`` are accepted and ignored: they
-    shape the reference's backward pass and its compiled program, and change
-    no forward value.  ``hoist_rope``, ``encoder_out`` and ``vision_embeds``
-    raise `NotImplementedError`.
+    place; only ``index`` is a new tensor.  ``remat="block"`` checkpoints
+    each period (`torch.utils.checkpoint`, recomputed in the backward) and
+    ``bf16_cotangent`` places the reference's barriers; both shape the
+    backward only.  ``psum_barrier`` is accepted and ignored (it shapes the
+    reference's compiled tensor-parallel program).  ``remat="dots"``,
+    ``hoist_rope``, ``encoder_out`` and ``vision_embeds`` raise
+    `NotImplementedError`.
     """
     if encoder_out is not None or vision_embeds is not None:
         raise NotImplementedError("encoder memory / vision prefix: "
                                   "ROADMAP Queue 1 item 13")
     if cfg.hoist_rope:
         raise NotImplementedError("hoist_rope: ROADMAP Queue 1 item 2")
+    if cfg.remat not in ("none", "block"):
+        raise NotImplementedError(f"remat={cfg.remat!r}: ROADMAP Queue 1 item 5")
     cd = dtype_of(cfg.compute_dtype)
     layout = _dense_layout(cfg)
     if input_embeds is not None:
@@ -224,16 +260,17 @@ def forward(
         positions = positions_for(cfg, B, S, offset, device=x.device)
     index = cache["index"] if cache is not None else None
 
-    for i in range(layout.n_full):
-        for j, kind in enumerate(layout.period_kinds):
-            bp = tree_map(lambda t: t[i], params["blocks"][f"pos{j}"])
-            cj = None if cache is None else tree_map(
-                lambda t: t[i], cache["blocks"][f"pos{j}"])
-            x, _ = _attn_block(bp, x, cfg, positions, cj, index, None, kind)
+    remat = cfg.remat == "block" and torch.is_grad_enabled()
+    layers = _unstack(params["blocks"], layout.n_full)
+    for i, bp in enumerate(layers):
+        cslice = None if cache is None else tree_map(lambda t: t[i], cache["blocks"])
+        args = (x, bp, cfg, layout.period_kinds, positions, cslice, index)
+        x = checkpoint(_period, *args, use_reentrant=False) if remat else _period(*args)
     for t, kind in enumerate(layout.tail):
         cj = None if cache is None else cache["tail"][t]
         x, _ = _attn_block(params["tail"][t], x, cfg, positions, cj, index, None, kind)
 
+    x = _bar(x, cfg)
     x = fused_rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     new_cache = None
     if cache is not None:
@@ -243,11 +280,43 @@ def forward(
     return x, new_cache, aux
 
 
-@torch.no_grad()
 def logits_fn(params: Dict, hidden: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
         return unembed(params["embed"], hidden, dtype_of(cfg.logit_dtype))
     return apply_linear(params["unembed"], hidden, dtype_of(cfg.logit_dtype))
+
+
+# ------------------------------------------------------------------ loss --
+def lm_loss(
+    params: Dict,
+    batch: Dict[str, torch.Tensor],
+    cfg: ModelConfig,
+    loss_chunk: int = 0,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token CE.  batch: inputs/targets (B,S) [+ positions].
+    ``loss_chunk`` bounds the logits materialised at once to (B, chunk, V)."""
+    hidden, _, aux = forward(params, batch["inputs"], cfg,
+                             positions=batch.get("positions"),
+                             vision_embeds=batch.get("vision_embeds"))
+    targets = batch["targets"].long()
+    if hidden.shape[1] != targets.shape[1]:
+        hidden = hidden[:, hidden.shape[1] - targets.shape[1]:]
+
+    def ce(h_chunk, t_chunk):
+        lg = logits_fn(params, h_chunk, cfg)
+        gold = torch.gather(lg, -1, t_chunk[..., None])[..., 0]
+        return (torch.logsumexp(lg, dim=-1) - gold).sum()
+
+    B, S, _ = hidden.shape
+    if loss_chunk and S % loss_chunk == 0 and S > loss_chunk:
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for c in range(0, S, loss_chunk):
+            total = total + ce(hidden[:, c:c + loss_chunk], targets[:, c:c + loss_chunk])
+    else:
+        total = ce(hidden, targets)
+    ce_mean = total / float(B * S)
+    loss = ce_mean + aux
+    return loss, {"loss": loss, "ce": ce_mean, "aux": aux}
 
 
 # ---------------------------------------------------------------- module --

@@ -5,7 +5,8 @@
 request *through* the decode step, one token a step, into its slot.
 
 Everything runs on ``device`` (default ``"cuda"``); the K/V cache is
-updated in place.
+updated in place.  The step functions run without autograd: their logits
+carry no graph.
 """
 
 from __future__ import annotations
@@ -28,12 +29,12 @@ def make_prefill_step(cfg: ModelConfig, max_len: int, cross_len: int = 0,
     """(params, batch) -> (cache, last_token_logits).
 
     batch: {"tokens": (B,S)} (+ positions).  The cache is allocated inside
-    (zeros).  Dense decoders only; a length that needs chunked attention
-    raises `NotImplementedError`.
+    (zeros).  Dense decoders only.
     """
     if cross_len or cfg.n_encoder_layers:
         raise NotImplementedError("encoder-decoder prefill: ROADMAP Queue 1 item 13")
 
+    @torch.no_grad()
     def prefill(params, batch):
         tokens = batch["tokens"]
         cache = init_cache(cfg, tokens.shape[0], max_len, device=device)
@@ -47,6 +48,7 @@ def make_prefill_step(cfg: ModelConfig, max_len: int, cross_len: int = 0,
 def make_decode_step(cfg: ModelConfig):
     """(params, cache, tokens (B,1)) -> (cache, logits (B,1,V))."""
 
+    @torch.no_grad()
     def decode(params, cache, tokens):
         hidden, cache, _ = forward(params, tokens, cfg, cache=cache)
         return cache, logits_fn(params, hidden, cfg)

@@ -1,0 +1,90 @@
+"""Train-step factory: loss -> grad -> (optional microbatch accumulation)
+-> optimizer, with remat handled inside the model (`cfg.remat`); the port
+of `repro.train.train_step`.
+
+``train_step(state, batch)`` returns ``(state, metrics)`` as the
+reference's does, but the state's parameters and optimizer moments are
+updated IN PLACE (see `repro_torch.train.optimizer`): the returned state
+holds the same tensors.  `state_shapes` builds the state on the ``meta``
+device (shapes and types, no memory).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from .._tree import tree_map
+from ..models import ModelConfig, init_lm, lm_loss
+from .optimizer import Optimizer, global_norm
+
+
+def init_state(generator: Optional[torch.Generator], cfg: ModelConfig,
+               optimizer: Optimizer, device=None) -> Dict:
+    """Fresh parameters from ``generator`` (on ``device``, by default the
+    generator's), the optimizer's state, and step 0."""
+    params = init_lm(generator, cfg, device=device)
+    return {"params": params, "opt": optimizer.init(params),
+            "step": torch.zeros((), dtype=torch.int32,
+                                device=params["embed"]["embedding"].device)}
+
+
+def make_train_step(
+    cfg: ModelConfig,
+    optimizer: Optimizer,
+    loss_chunk: int = 0,
+    n_microbatch: int = 1,
+):
+    """``train_step(state, batch) -> (state, metrics)``; batch: tensors
+    ``inputs`` / ``targets`` (B, S) on the parameters' device.
+
+    With ``n_microbatch > 1`` the batch's leading dim is split and the
+    gradients are accumulated in fp32 (bounds activation memory
+    independently of the batch size); the metrics are the last
+    microbatch's, as in the reference."""
+
+    def single(params, batch):
+        leaves = []
+
+        def track(p):
+            leaves.append(p.detach().requires_grad_(True))
+            return leaves[-1]
+
+        live = tree_map(track, params)
+        with torch.enable_grad():
+            loss, metrics = lm_loss(live, batch, cfg, loss_chunk=loss_chunk)
+            grads = iter(torch.autograd.grad(loss, leaves, allow_unused=True,
+                                             materialize_grads=True))
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        return tree_map(lambda _: next(grads), live), metrics["loss"], metrics
+
+    def accumulated(params, batch):
+        micro = {k: v.reshape(n_microbatch, -1, *v.shape[1:]) for k, v in batch.items()}
+        acc, loss_sum, metrics = None, 0.0, None
+        for i in range(n_microbatch):
+            grads, loss, metrics = single(params, {k: v[i] for k, v in micro.items()})
+            if acc is None:
+                acc = tree_map(lambda g: g.to(torch.float32, copy=True), grads)
+            else:
+                tree_map(lambda a, g: a.add_(g), acc, grads)
+            loss_sum = loss_sum + loss
+        return tree_map(lambda g: g.div_(n_microbatch), acc), loss_sum / n_microbatch, metrics
+
+    def train_step(state, batch):
+        params = state["params"]
+        if n_microbatch > 1:
+            grads, _, metrics = accumulated(params, batch)
+        else:
+            grads, _, metrics = single(params, batch)
+        metrics = dict(metrics, grad_norm=global_norm(grads))
+        params, opt = optimizer.update(grads, state["opt"], params)
+        return {"params": params, "opt": opt, "step": state["step"] + 1}, metrics
+
+    return train_step
+
+
+def state_shapes(cfg: ModelConfig, optimizer: Optimizer) -> Dict:
+    """The train state on the ``meta`` device: every leaf's shape and type,
+    no memory (the counterpart of the reference's ShapeDtypeStruct tree)."""
+    return init_state(None, cfg, optimizer, device="meta")

@@ -1,0 +1,101 @@
+"""Training loop: the port of `repro.train.trainer`, on one device.
+
+`Trainer.run` draws step-indexed batches, moves them to the device, runs
+the train step and logs each step's loss, gradient norm and seconds.  It
+runs on ``device="cuda"`` unless asked otherwise.  A mesh or sharding
+strategy (ROADMAP Queue 1 item 14) and checkpointing (``ckpt_dir``, item
+9) raise `NotImplementedError`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Dict, Iterable, List, Optional
+
+import torch
+
+from ..data import DataConfig, SyntheticLM
+from ..models import ModelConfig
+from .optimizer import Optimizer, make_optimizer
+from .train_step import init_state, make_train_step
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    steps: int = 100
+    ckpt_dir: Optional[str] = None     # raises until checkpointing is ported
+    log_every: int = 10
+    loss_chunk: int = 0
+    n_microbatch: int = 1
+    seed: int = 0
+
+
+def _to_device(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+class Trainer:
+    def __init__(
+        self,
+        cfg: ModelConfig,
+        tcfg: TrainerConfig,
+        data: Iterable,
+        mesh=None,
+        strategy=None,
+        optimizer: Optional[Optimizer] = None,
+        step_hooks: Optional[List[Callable]] = None,
+        device="cuda",
+    ):
+        if mesh is not None or strategy is not None:
+            raise NotImplementedError("sharded training (mesh / strategy): "
+                                      "ROADMAP Queue 1 item 14")
+        if tcfg.ckpt_dir:
+            raise NotImplementedError("checkpointing (ckpt_dir): ROADMAP Queue 1 item 9")
+        self.cfg = cfg
+        self.tcfg = tcfg
+        self.data = data
+        self.device = torch.device(device)
+        # Without an optimizer, a schedule that fits the run length (a fixed
+        # 100-step warm-up would swallow short runs), as the reference makes.
+        self.optimizer = optimizer or make_optimizer(
+            cfg.optimizer, lr=1e-3, warmup=max(1, tcfg.steps // 10), total_steps=tcfg.steps)
+        self.step_hooks = step_hooks or []
+        self.metrics_log: List[Dict] = []
+        self._step = make_train_step(cfg, self.optimizer, loss_chunk=tcfg.loss_chunk,
+                                     n_microbatch=tcfg.n_microbatch)
+
+    def init_or_restore(self):
+        """Fresh parameters from ``tcfg.seed`` (no checkpoint to resume yet)."""
+        generator = torch.Generator(self.device).manual_seed(self.tcfg.seed)
+        return init_state(generator, self.cfg, self.optimizer, device=self.device), 0
+
+    def run(self, state=None, start_step: int = 0):
+        if state is None:
+            state, start_step = self.init_or_restore()
+        # Step-indexed sources seek to the resume point; plain iterables
+        # restart from their head.
+        seekable = hasattr(self.data, "batch_at")
+        data_it = None if seekable else iter(self.data)
+        for step in range(start_step, self.tcfg.steps):
+            batch = self.data.batch_at(step) if seekable else next(data_it)
+            t0 = time.perf_counter()
+            state, metrics = self._step(state, _to_device(batch, self.device))
+            loss = float(metrics["loss"])          # waits for the step
+            dt = time.perf_counter() - t0
+            rec = {"step": step, "loss": loss, "grad_norm": float(metrics["grad_norm"]),
+                   "dt_s": dt}
+            self.metrics_log.append(rec)
+            if step % self.tcfg.log_every == 0:
+                print(f"step {step:5d}  loss {loss:.4f}  {dt*1e3:.0f} ms")
+            for hook in self.step_hooks:
+                hook(self, step, state, rec)
+        return state
+
+
+def make_synthetic_trainer(cfg: ModelConfig, tcfg: TrainerConfig,
+                           global_batch: int, seq_len: int, **kw) -> Trainer:
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  global_batch=global_batch, seq_len=seq_len,
+                                  seed=tcfg.seed))
+    return Trainer(cfg, tcfg, data, **kw)

@@ -70,9 +70,11 @@ class TestGqaReference:
         np.testing.assert_allclose(_np(got), _np(want), **_tol(True))
 
     def test_long_sequences_name_the_missing_path(self):
-        q = torch.zeros(1, 2048, 1, 32)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tattn._self_attention_math(q, q, q, True)
+        """The chunked / flash branch is ported: Sq = 2048 no longer raises
+        and agrees with the unchunked plain attention."""
+        (_, q), (_, k), (_, v) = _qkv(np.random.default_rng(3), 1, 2048, 2048, 2, 1, 32)
+        np.testing.assert_allclose(_np(tattn._self_attention_math(q, k, v, True)),
+                                   _np(tattn.gqa_reference(q, k, v, True)), **_tol(False))
 
 
 DECODE_SHAPES = [(1, 256, 4, 4, 64, 64), (2, 512, 8, 2, 64, 128), (3, 384, 6, 6, 32, 128)]

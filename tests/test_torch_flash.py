@@ -1,0 +1,215 @@
+"""The flash-attention path of the port against the reference, on the CPU.
+
+On a CPU tensor the port's `flash_attention` runs its plain version; here
+it is held against the interpret-mode Pallas kernel and the reference's
+`_flash_fwd_math` (output and log-sum-exp), and the training autograd
+Function against `jax.grad` of `flash_attention_jnp`.  Inputs are made by
+numpy from a seed.  Tolerances: fp32 2e-5 and bf16 5e-2 for forward
+values (those of tests/test_kernels.py); 1e-4 for gradients, which sum
+over every block pair in another order than the reference.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.kernels import ops as jops
+from repro.models import attention as jattn
+from repro.models.config import reduced as jreduced
+from repro_torch.configs import get_config as tget_config
+from repro_torch.convert import params_from_jax, tree_to_numpy
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from repro_torch.models import attention as tattn
+from repro_torch.models.config import reduced as treduced
+
+GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _tol(bf16):
+    return dict(atol=5e-2, rtol=5e-2) if bf16 else dict(atol=2e-5, rtol=2e-5)
+
+
+def _pair(rng, shape, bf16=False):
+    x = rng.standard_normal(shape).astype(np.float32)
+    return (jnp.asarray(x, jnp.bfloat16 if bf16 else jnp.float32),
+            torch.from_numpy(x).to(torch.bfloat16 if bf16 else torch.float32))
+
+
+def _np(t):
+    return tree_to_numpy(t) if isinstance(t, torch.Tensor) else np.asarray(t, np.float32)
+
+
+def _qkv(seed, B, Sq, Sk, Hq, Hkv, D, bf16=False):
+    rng = np.random.default_rng(seed)
+    return (_pair(rng, (B, Sq, Hq, D), bf16), _pair(rng, (B, Sk, Hkv, D), bf16),
+            _pair(rng, (B, Sk, Hkv, D), bf16))
+
+
+# The cases of tests/test_kernels.py::TestFlashAttention: (B, S, Hq, Hkv, D, bq, bk).
+CASES = [(1, 128, 4, 4, 64, 64, 64), (2, 256, 8, 2, 64, 128, 64),
+         (2, 256, 6, 3, 32, 64, 128), (1, 512, 4, 1, 128, 128, 128)]
+
+
+class TestFlashForward:
+    @pytest.mark.parametrize("bf16", [False, True])
+    @pytest.mark.parametrize("causal", [True, False])
+    @pytest.mark.parametrize("B,S,Hq,Hkv,D,bq,bk", CASES)
+    def test_matches_pallas_and_fwd_math(self, B, S, Hq, Hkv, D, bq, bk, causal, bf16):
+        (jq, tq), (jk, tk), (jv, tv) = _qkv(1, B, S, S, Hq, Hkv, D, bf16)
+        want_pallas = jops.flash_attention(jq, jk, jv, causal=causal, block_q=bq, block_k=bk)
+        want_out, want_lse = jattn._flash_fwd_math(jq, jk, jv, causal, 0, None, bq, bk)
+        for fn in (flash_attention, flash_attention_plain, tops.flash_attention):
+            out, lse = fn(tq, tk, tv, causal)
+            assert out.shape == tq.shape and out.dtype == tq.dtype
+            assert lse.shape == (B, Hkv, Hq // Hkv, S) and lse.dtype == torch.float32
+            np.testing.assert_allclose(_np(out), _np(want_pallas), **_tol(bf16))
+            np.testing.assert_allclose(_np(out), _np(want_out), **_tol(bf16))
+            np.testing.assert_allclose(_np(lse), _np(want_lse), **_tol(bf16))
+        np.testing.assert_allclose(_np(tref.flash_attention_ref(tq, tk, tv, causal)),
+                                   _np(want_pallas), **_tol(bf16))
+        out, lse = tattn._flash_fwd_math(tq, tk, tv, causal, 0, None, bq, bk)
+        np.testing.assert_allclose(_np(out), _np(want_out), **_tol(bf16))
+        np.testing.assert_allclose(_np(lse), _np(want_lse), **_tol(bf16))
+
+    @pytest.mark.parametrize("causal", [True, False])
+    @pytest.mark.parametrize("Sq,Sk,chunk", [(40, 40, 16), (1000, 1000, 128), (24, 70, 32)])
+    def test_ragged_blocks_are_masked(self, Sq, Sk, chunk, causal):
+        """Chunks that do not divide the lengths (the CUDA path's last chunk)
+        give what the unchunked reference gives."""
+        (jq, tq), (jk, tk), (jv, tv) = _qkv(2, 2, Sq, Sk, 4, 2, 32)
+        want = jattn.gqa_reference(jq, jk, jv, causal)
+        out, lse = tattn._flash_fwd_math(tq, tk, tv, causal, 0, None, chunk, chunk)
+        np.testing.assert_allclose(_np(out), _np(want), **_tol(False))
+        _, plain_lse = flash_attention_plain(tq, tk, tv, causal)
+        np.testing.assert_allclose(_np(lse), _np(plain_lse), **_tol(False))
+
+    def test_use_plain_switch_and_no_launch_on_the_cpu(self):
+        (_, q), (_, k), (_, v) = _qkv(3, 1, 16, 16, 2, 2, 32)
+        with tops.use_plain():
+            inside = tops.flash_attention(q, k, v, True)
+        outside = tops.flash_attention(q, k, v, True)
+        assert all(torch.equal(a, b) for a, b in zip(inside, outside))
+        assert flash_attention.launches == 0
+
+
+class TestChunkedAttention:
+    @pytest.mark.parametrize("q_offset", [0, 5, "array"])
+    @pytest.mark.parametrize("kv_len", [None, 20, "int"])
+    def test_offset_and_length(self, q_offset, kv_len):
+        (jq, tq), (jk, tk), (jv, tv) = _qkv(4, 2, 8, 32, 4, 2, 32)
+        joff, toff = ((jnp.asarray(7, jnp.int32), torch.tensor(7, dtype=torch.int32))
+                      if q_offset == "array" else (q_offset, q_offset))
+        jlen = None if kv_len is None else jnp.asarray(17 if kv_len == "int" else kv_len,
+                                                       jnp.int32)
+        tlen = (None if kv_len is None else 17 if kv_len == "int"
+                else torch.tensor(kv_len, dtype=torch.int32))
+        want = jattn.chunked_attention(jq, jk, jv, causal=True, q_offset=joff, kv_len=jlen,
+                                       q_chunk=4, k_chunk=8)
+        got = tattn.chunked_attention(tq, tk, tv, causal=True, q_offset=toff, kv_len=tlen,
+                                      q_chunk=4, k_chunk=8)
+        np.testing.assert_allclose(_np(got), _np(want), **_tol(False))
+
+    def test_chunks_that_do_not_divide_fall_back_to_the_reference(self):
+        (jq, tq), (jk, tk), (jv, tv) = _qkv(5, 1, 6, 10, 2, 2, 32)
+        want = jattn.chunked_attention(jq, jk, jv, causal=True, q_chunk=4, k_chunk=4)
+        got = tattn.chunked_attention(tq, tk, tv, causal=True, q_chunk=4, k_chunk=4)
+        np.testing.assert_allclose(_np(got), _np(want), **_tol(False))
+
+
+class TestFlashBackward:
+    @pytest.mark.parametrize("causal", [True, False])
+    @pytest.mark.parametrize("B,S,Hq,Hkv,D,chunk", [(2, 64, 8, 2, 32, 16), (1, 96, 4, 4, 64, 32),
+                                                    (1, 128, 6, 3, 32, 128)])
+    def test_grads_match_jax(self, B, S, Hq, Hkv, D, chunk, causal):
+        (jq, tq), (jk, tk), (jv, tv) = _qkv(6, B, S, S, Hq, Hkv, D)
+        jw, tw = _pair(np.random.default_rng(7), (B, S, Hq, D))
+
+        def jloss(q, k, v):
+            return (jattn.flash_attention_jnp(q, k, v, causal, chunk, chunk) * jw).sum()
+
+        jl, jg = jax.value_and_grad(jloss, argnums=(0, 1, 2))(jq, jk, jv)
+        tq, tk, tv = (t.requires_grad_(True) for t in (tq, tk, tv))
+        tl = (tattn.flash_attention_jnp(tq, tk, tv, causal, chunk, chunk) * tw).sum()
+        tg = torch.autograd.grad(tl, (tq, tk, tv))
+        np.testing.assert_allclose(float(tl.detach()), float(jl), **GRAD_TOL)
+        for name, g, w in zip("qkv", tg, jg):
+            np.testing.assert_allclose(_np(g), _np(w), err_msg=f"d{name}", **GRAD_TOL)
+
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_ragged_chunks_match_autograd_of_the_reference(self, causal):
+        """Chunks of 16 over 40 positions: the last chunk is ragged."""
+        (_, tq), (_, tk), (_, tv) = _qkv(8, 2, 40, 40, 4, 2, 32)
+        w = torch.from_numpy(np.random.default_rng(9).standard_normal((2, 40, 4, 32))
+                             .astype(np.float32))
+        grads = []
+        for fn in (lambda q, k, v: tattn.flash_attention_jnp(q, k, v, causal, 16, 16),
+                   lambda q, k, v: tattn.gqa_reference(q, k, v, causal)):
+            leaves = [t.detach().clone().requires_grad_(True) for t in (tq, tk, tv)]
+            grads.append(torch.autograd.grad((fn(*leaves) * w).sum(), leaves))
+        for g, want in zip(*grads):
+            np.testing.assert_allclose(g.numpy(), want.numpy(), **GRAD_TOL)
+
+
+class TestSelfAttentionMath:
+    def test_long_sequence_takes_the_flash_branch(self):
+        """Sq = 2048: the reference routes to `flash_attention_jnp` (1024-chunks)."""
+        (jq, tq), (jk, tk), (jv, tv) = _qkv(10, 1, 2048, 2048, 4, 2, 32)
+        want = jattn._self_attention_math(jq, jk, jv, True)
+        got = tattn._self_attention_math(tq, tk, tv, True)
+        np.testing.assert_allclose(_np(got), _np(want), **_tol(False))
+
+    def test_long_prefill_with_offset_takes_the_chunked_branch(self):
+        (jq, tq), (jk, tk), (jv, tv) = _qkv(11, 1, 2048, 3072, 2, 1, 32)
+        want = jattn._self_attention_math(jq, jk, jv, True, q_offset=jnp.asarray(512),
+                                          kv_len=jnp.asarray(2560))
+        got = tattn._self_attention_math(tq, tk, tv, True, q_offset=torch.tensor(512),
+                                         kv_len=torch.tensor(2560))
+        np.testing.assert_allclose(_np(got), _np(want), **_tol(False))
+
+    def test_attention_entry_at_2048_and_prefill_cache(self):
+        jcfg = jreduced(jget_config("granite-3-2b"))
+        tcfg = treduced(tget_config("granite-3-2b"))
+        params = jattn.init_attention(jax.random.PRNGKey(0), jcfg, jnp.float32)
+        tparams = params_from_jax(jax.tree.map(np.asarray, params), "cpu")
+        jx, tx = _pair(np.random.default_rng(12), (1, 2048, jcfg.d_model))
+        pos = np.arange(2048, dtype=np.int32)[None]
+        want, _ = jattn.attention(params, jx, jcfg, jnp.asarray(pos))
+        got, _ = tattn.attention(tparams, tx, tcfg, torch.from_numpy(pos))
+        np.testing.assert_allclose(_np(got), _np(want), atol=1e-4, rtol=1e-4)
+        (jk, tk), (jv, tv) = _pair(np.random.default_rng(13), (2, 5, 2, 32)), \
+            _pair(np.random.default_rng(14), (2, 5, 2, 32))
+        jc = jattn.prefill_cache(jcfg, jk, jv, 9)
+        tc = tattn.prefill_cache(tcfg, tk, tv, 9)
+        for n in "kv":
+            assert tc[n].shape == (2, 9, 2, 32)
+            np.testing.assert_array_equal(_np(tc[n]), _np(jc[n]))
+
+    def test_short_causal_entry_takes_the_flash_route(self):
+        """S 40 (below the threshold, where the reference uses `gqa_reference`):
+        the entry goes through the flash autograd Function, the card's route;
+        its input gradient against JAX's (fp32, 1e-4)."""
+        jcfg = jreduced(jget_config("granite-3-2b"))
+        tcfg = treduced(tget_config("granite-3-2b"))
+        params = jattn.init_attention(jax.random.PRNGKey(1), jcfg, jnp.float32)
+        tparams = params_from_jax(jax.tree.map(np.asarray, params), "cpu")
+        jx, tx = _pair(np.random.default_rng(15), (2, 40, jcfg.d_model))
+        pos = np.broadcast_to(np.arange(40, dtype=np.int32), (2, 40))
+        w = np.random.default_rng(16).standard_normal((2, 40, jcfg.d_model)).astype(np.float32)
+        loss = lambda x: jnp.sum(jattn.attention(params, x, jcfg, jnp.asarray(pos))[0] * w)
+        want_dx = jax.grad(loss)(jx)
+        tx.requires_grad_(True)
+        got, _ = tattn.attention(tparams, tx, tcfg, torch.from_numpy(pos.copy()))
+        seen, stack = set(), [got.grad_fn]
+        while stack:
+            fn = stack.pop()
+            if fn is not None and fn not in seen:
+                seen.add(fn)
+                stack.extend(f for f, _ in fn.next_functions)
+        assert "_FlashAttentionBackward" in {type(f).__name__ for f in seen}
+        (got * torch.from_numpy(w)).sum().backward()
+        np.testing.assert_allclose(tx.grad.numpy(), np.asarray(want_dx), **GRAD_TOL)

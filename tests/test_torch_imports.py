@@ -14,6 +14,7 @@ import torch
 import repro_torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rms_norm
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -30,8 +31,10 @@ def _module_names():
 def test_every_submodule_imports_without_jax_or_repro():
     names = _module_names()
     assert {"repro_torch.kernels._build", "repro_torch.kernels.ops",
-            "repro_torch.serve.engine", "repro_torch.convert",
-            "repro_torch.configs.granite_3_2b"} <= set(names)
+            "repro_torch.kernels.flash_attention", "repro_torch.serve.engine",
+            "repro_torch.convert", "repro_torch.configs.granite_3_2b",
+            "repro_torch.train.optimizer", "repro_torch.train.train_step",
+            "repro_torch.train.trainer", "repro_torch.data.pipeline"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -49,7 +52,7 @@ def test_every_submodule_imports_without_jax_or_repro():
 def _sources():
     files = sorted(PACKAGE.rglob("*.py")) + sorted(PACKAGE.rglob("*.cu")) + \
         sorted(PACKAGE.rglob("*.cuh")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 25
+    assert len(files) > 30
     return files
 
 
@@ -62,9 +65,10 @@ def test_no_source_imports_jax_or_repro(pattern):
 
 
 def test_no_source_calls_a_library_kernel_or_compiler():
-    """The serving path's kernels are the repo's own: the package never calls
-    the fused library operators or `torch.compile` (chip_smoke.py may time
-    the library calls beside the kernels, and is left out here)."""
+    """The serving and training paths' kernels are the repo's own: the
+    package never calls the fused library operators or `torch.compile`
+    (chip_smoke.py may time the library calls beside the kernels, and is
+    left out here)."""
     rx = re.compile(r"scaled_dot_product_attention|F\.rms_norm|functional\.rms_norm|"
                     r"torch\.compile|cuda\.graphs|CUDAGraph")
     hits = [str(f.relative_to(ROOT)) for f in _sources()
@@ -74,7 +78,7 @@ def test_no_source_calls_a_library_kernel_or_compiler():
 
 def test_build_plan_needs_no_nvcc(tmp_path, monkeypatch):
     names = [p.name for p in _build.sources()]
-    assert names == ["decode_attention.cu", "rmsnorm.cu"]
+    assert names == ["decode_attention.cu", "flash_attention.cu", "rmsnorm.cu"]
     assert [p.name for p in _build.headers()] == ["common.cuh"]
     cmd = _build.compile_command(_build.sources()[0], tmp_path / "x.o")
     assert cmd[0] == "nvcc" and "arch=compute_90a,code=sm_90a" in cmd and "-c" in cmd
@@ -84,8 +88,10 @@ def test_build_plan_needs_no_nvcc(tmp_path, monkeypatch):
     assert _build.library_path().name == f"librepro_torch_{_build.source_hash()}.so"
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
     assert _build.library_path().parent == tmp_path
-    assert set(_build.SIGNATURES) == {"repro_rms_norm", "repro_decode_attention"}
+    assert set(_build.SIGNATURES) == {"repro_rms_norm", "repro_decode_attention",
+                                      "repro_flash_attention"}
     assert len(_build.SIGNATURES["repro_decode_attention"]) == 17
+    assert len(_build.SIGNATURES["repro_flash_attention"]) == 14
 
 
 def test_source_hash_follows_the_sources(tmp_path, monkeypatch):
@@ -141,6 +147,21 @@ class TestWrappersRefuse:
         with pytest.raises(ValueError):
             decode_attention(torch.zeros(2, 1, 3, 32), k, k, 3)      # 3 heads over 2
         assert decode_attention(q, k, k, 3).shape == q.shape
+
+    def test_flash_attention_types_and_shapes(self):
+        q, k = torch.zeros(2, 5, 4, 32), torch.zeros(2, 7, 2, 32)
+        with pytest.raises(TypeError):
+            flash_attention(q.half(), k.half(), k.half())
+        with pytest.raises(TypeError):
+            flash_attention(q, k.bfloat16(), k)
+        with pytest.raises(ValueError):
+            flash_attention(q, k, torch.zeros(2, 8, 2, 32))           # k and v differ
+        with pytest.raises(ValueError):
+            flash_attention(torch.zeros(2, 5, 3, 32), k, k)           # 3 heads over 2
+        with pytest.raises(ValueError):
+            flash_attention(q, torch.zeros(2, 7, 2, 16), torch.zeros(2, 7, 2, 16))
+        out, lse = flash_attention(q, k, k, causal=False)
+        assert out.shape == q.shape and lse.shape == (2, 2, 2, 5)
 
 
 def test_chip_smoke_refuses_to_run_without_a_gpu():
