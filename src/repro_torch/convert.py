@@ -45,9 +45,22 @@ def state_from_jax(tree: Any, device="cuda"):
 def cache_from_jax(tree: Any, device="cuda", dtype: Optional[torch.dtype] = None):
     """A cache pytree (`init_cache`, or one slot's `export_slot` payload) of
     numpy arrays -> tensors; ``index`` keeps its integer type, python
-    scalars (the payload's ``offset``) pass through."""
-    return tree_map(
-        lambda a: a if isinstance(a, (int, float)) else _to_tensor(a, device, dtype), tree)
+    scalars (the payload's ``offset``) pass through.  ``dtype`` casts the
+    leaves held in the compute type (K, V, conv windows); the Mamba2
+    ``state`` leaves stay fp32, as `init_ssm_cache` makes them."""
+    def convert(a, key):
+        if isinstance(a, (int, float)):
+            return a
+        return _to_tensor(a, device, None if key == "state" else dtype)
+
+    def walk(t, key=None):
+        if isinstance(t, dict):
+            return {k: walk(v, k) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [walk(v, key) for v in t]
+        return convert(t, key)
+
+    return walk(tree)
 
 
 def _to_numpy(t) -> Any:

@@ -72,4 +72,15 @@ struct Vec16<__nv_bfloat16> {
   }
 };
 
+// The attention kernels' d_head: 32, 64 and 128 run exact instances; any
+// other multiple of the 16-byte vector up to 128 runs the instance padded to
+// 128 (rows read at their own stride D, lanes past D masked).  The wrappers
+// hold the same rule (kernels/_build.py, check_head_dim).
+constexpr int kMaxHeadDim = 128;
+
+template <typename T>
+inline bool padded_head_dim(int D) {
+  return D > 0 && D < kMaxHeadDim && D % Vec16<T>::N == 0;
+}
+
 }  // namespace repro

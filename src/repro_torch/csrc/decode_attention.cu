@@ -17,6 +17,11 @@
 //   * No restriction on Sk; kv_len is clamped to [0, Sk]; a split that
 //     lies wholly past kv_len loads nothing and writes an empty partial;
 //     kv_len == 0 gives zeros (l floored at 1e-30, as the TPU kernel does).
+//   * D = 32, 64 and 128 have exact instances.  Any other D that is a
+//     multiple of the 16-byte vector and at most 128 (zamba2-7b's 112) runs
+//     the padded instance: its register and shared-memory rows are 128
+//     wide, rows are read at their native stride D, and the lanes at or
+//     past D load zeros and store nothing.
 //
 // Bound by bytes: the valid prefix of K and V is read once,
 // 2 * sum_b kv_len[b] * Hkv * D * itemsize.  Both products (q.k^T and p.v)
@@ -36,13 +41,16 @@ constexpr float NEG_INF = -1e30f;
 constexpr int THREADS = 128;
 constexpr int UNROLL = 4;
 
-template <typename T, int D, int GMAX>
+// D is the width of a row in registers and shared memory; dd the row's
+// length and stride in device memory: D itself, or with PAD the runtime
+// d_rt <= D, the lanes at or past it masked.
+template <typename T, int D, int GMAX, bool PAD>
 __global__ void __launch_bounds__(THREADS)
 decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const int* __restrict__ kv_len,
                       T* __restrict__ out, float* __restrict__ part_m,
                       float* __restrict__ part_l, float* __restrict__ part_acc, int Sk,
-                      int Hkv, int G, int chunk, int n_splits, float scale) {
+                      int Hkv, int G, int chunk, int n_splits, float scale, int d_rt) {
   constexpr int VEC = Vec16<T>::N;
   constexpr int TPK = D / VEC;       // threads that share one key row
   constexpr int NG = THREADS / TPK;  // key rows the block reads a step
@@ -52,6 +60,8 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x;
   const int grp = tid / TPK, lane = tid % TPK;
   const int Hq = Hkv * G;
+  const int dd = PAD ? d_rt : D;
+  const bool lane_ok = !PAD || lane * VEC < dd;
 
   const int len = min(max(kv_len[b], 0), Sk);
   const int start = split * chunk;
@@ -69,13 +79,13 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
       acc[g][i] = 0.f;
       qf[g][i] = 0.f;
     }
-    if (g < G)
-      Vec16<T>::unpack(repro::load16_ro(q + ((size_t)b * Hq + h * G + g) * D + lane * VEC), qf[g]);
+    if (g < G && lane_ok)
+      Vec16<T>::unpack(repro::load16_ro(q + ((size_t)b * Hq + h * G + g) * dd + lane * VEC), qf[g]);
   }
 
-  const size_t row_stride = (size_t)Hkv * D;
-  const T* kb = k + ((size_t)b * Sk * Hkv + h) * D + lane * VEC;
-  const T* vb = v + ((size_t)b * Sk * Hkv + h) * D + lane * VEC;
+  const size_t row_stride = (size_t)Hkv * dd;
+  const T* kb = k + ((size_t)b * Sk * Hkv + h) * dd + lane * VEC;
+  const T* vb = v + ((size_t)b * Sk * Hkv + h) * dd + lane * VEC;
 
   // Every thread of the block takes the same number of trips, so that the
   // shuffles below always find their whole warp.
@@ -86,7 +96,7 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int u = 0; u < UNROLL; ++u) {
       const int j = base + u * NG + grp;
       ok[u] = j < end;
-      if (ok[u]) {
+      if (ok[u] && lane_ok) {
         kr[u] = repro::load16_ro(kb + (size_t)j * row_stride);
         vr[u] = repro::load16_ro(vb + (size_t)j * row_stride);
       } else {
@@ -157,8 +167,8 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
-  for (int e = tid; e < G * D; e += THREADS) {
-    const int g = e / D, d = e % D;
+  for (int e = tid; e < G * dd; e += THREADS) {
+    const int g = e / dd, d = e % dd;
     float M = NEG_INF;
     for (int n = 0; n < NG; ++n) M = fmaxf(M, sm_m[n][g]);
     float L = 0.f, A = 0.f;
@@ -168,10 +178,10 @@ decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
       A += sm_acc[n][g][d] * w;
     }
     if (n_splits == 1) {
-      out[((size_t)b * Hq + h * G + g) * D + d] = Vec16<T>::one(A / fmaxf(L, 1e-30f));
+      out[((size_t)b * Hq + h * G + g) * dd + d] = Vec16<T>::one(A / fmaxf(L, 1e-30f));
     } else {
       const size_t idx = (((size_t)b * Hkv + h) * n_splits + split) * G + g;
-      part_acc[idx * D + d] = A;
+      part_acc[idx * dd + d] = A;
       if (d == 0) {
         part_m[idx] = M;
         part_l[idx] = L;
@@ -210,28 +220,28 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D, int GMAX>
+template <typename T, int D, int GMAX, bool PAD>
 int launch(const Args& a) {
   const int G = a.Hq / a.Hkv;
   const dim3 grid(a.n_splits, a.Hkv, a.B);
-  decode_partial_kernel<T, D, GMAX><<<grid, THREADS, 0, a.stream>>>(
+  decode_partial_kernel<T, D, GMAX, PAD><<<grid, THREADS, 0, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       a.kv_len, static_cast<T*>(a.out), a.part_m, a.part_l, a.part_acc, a.Sk, a.Hkv, G,
-      a.chunk, a.n_splits, 1.0f / sqrtf((float)D));
+      a.chunk, a.n_splits, 1.0f / sqrtf((float)a.D), a.D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.n_splits == 1) return (int)err;
-  decode_merge_kernel<T><<<dim3(a.B * a.Hkv, G), D, 0, a.stream>>>(
-      a.part_m, a.part_l, a.part_acc, static_cast<T*>(a.out), a.n_splits, G, D);
+  decode_merge_kernel<T><<<dim3(a.B * a.Hkv, G), a.D, 0, a.stream>>>(
+      a.part_m, a.part_l, a.part_acc, static_cast<T*>(a.out), a.n_splits, G, a.D);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool PAD = false>
 int launch_g(const Args& a) {
   const int G = a.Hq / a.Hkv;
-  if (G == 1) return launch<T, D, 1>(a);
-  if (G == 2) return launch<T, D, 2>(a);
-  if (G <= 4) return launch<T, D, 4>(a);
-  if (G <= 8) return launch<T, D, 8>(a);
+  if (G == 1) return launch<T, D, 1, PAD>(a);
+  if (G == 2) return launch<T, D, 2, PAD>(a);
+  if (G <= 4) return launch<T, D, 4, PAD>(a);
+  if (G <= 8) return launch<T, D, 8, PAD>(a);
   return -1;
 }
 
@@ -240,6 +250,7 @@ int launch_d(const Args& a) {
   if (a.D == 32) return launch_g<T, 32>(a);
   if (a.D == 64) return launch_g<T, 64>(a);
   if (a.D == 128) return launch_g<T, 128>(a);
+  if (repro::padded_head_dim<T>(a.D)) return launch_g<T, repro::kMaxHeadDim, true>(a);
   return -1;
 }
 
@@ -247,7 +258,8 @@ int launch_d(const Args& a) {
 
 // Returns the launch's cudaError_t (0 on success), or -1 for arguments the
 // kernels do not take.  q, out: (B, 1, Hq, D); k, v: (B, Sk, Hkv, D);
-// kv_len: (B,) int32; all contiguous, on the device, 16-byte aligned.
+// kv_len: (B,) int32; all contiguous, on the device, 16-byte aligned; D a
+// multiple of the 16-byte vector (8 bf16, 4 fp32) and at most 128.
 // Split s covers keys [s*chunk, (s+1)*chunk).  With n_splits > 1 the
 // scratch holds part_m, part_l: (B, Hkv, n_splits, G) and part_acc:
 // (B, Hkv, n_splits, G, D), fp32; with n_splits == 1 it is not touched.

@@ -19,6 +19,11 @@
 //   * Under causality the tiles wholly above the diagonal are not visited
 //     (the loop ends at the block's last query row), as `pl.when` skips them.
 //   * Softmax state (m, l, acc) is fp32; l is floored at 1e-30 at the end.
+//   * D = 32, 64 and 128 have exact instances.  Any other D that is a
+//     multiple of the 16-byte vector and at most 128 (zamba2-7b's 112) runs
+//     the padded instance: its register and shared-memory rows are 128
+//     wide, rows are read at their native stride D, and the values at or
+//     past D are zeros in q, k and v and are not stored.
 //
 // Bound: at the training shape (B 2, S 4096, Hq 32, Hkv 8, D 64, bf16,
 // causal) by operations, 4 * B * Hq * D * S^2 / 2 = 1.37e11, against about
@@ -76,11 +81,14 @@ struct Quad<__nv_bfloat16> {
   }
 };
 
-template <typename T, int D>
+// D is the width of a row in registers and shared memory; dd the row's
+// length and stride in device memory: D itself, or with PAD the runtime
+// d_rt <= D, the values at or past it masked.
+template <typename T, int D, bool PAD>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ out, float* __restrict__ lse, int Sq, int Sk, int Hq, int Hkv,
-                 int causal, float scale) {
+                 int causal, float scale, int d_rt) {
   constexpr int TPR = D / PER;          // threads that share one query row
   constexpr int BQ = THREADS / TPR;     // query rows a block
   constexpr int BK = 4096 / D;          // keys a tile in shared memory
@@ -98,15 +106,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
   const bool q_ok = qi < Sq;
+  const int dd = PAD ? d_rt : D;
 
   // Quad c of this thread holds the row's values 4 * (c * TPR + part) + 0..3:
   // the TPR threads of a row read neighbouring 16-byte pieces of a key row
   // in shared memory at once, so no two of them wait on one bank.
   float qf[NQ][4], acc[NQ][4];
-  const size_t q_at = (((size_t)b * Sq + (q_ok ? qi : 0)) * Hq + h) * D;
+  const size_t q_at = (((size_t)b * Sq + (q_ok ? qi : 0)) * Hq + h) * dd;
 #pragma unroll
   for (int c = 0; c < NQ; ++c) {
-    if (q_ok) {
+    if (q_ok && (!PAD || 4 * (c * TPR + part) < dd)) {
       Quad<T>::load(q + q_at + 4 * (c * TPR + part), qf[c]);
     } else {
 #pragma unroll
@@ -119,9 +128,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   // Causal: no key past the block's last row is needed.
   const int k_end = causal ? min(Sk, q0 + BQ) : Sk;
-  const size_t kv_row = (size_t)Hkv * D;
-  const T* kb = k + (size_t)b * Sk * kv_row + (size_t)hk * D;
-  const T* vb = v + (size_t)b * Sk * kv_row + (size_t)hk * D;
+  const size_t kv_row = (size_t)Hkv * dd;
+  const T* kb = k + (size_t)b * Sk * kv_row + (size_t)hk * dd;
+  const T* vb = v + (size_t)b * Sk * kv_row + (size_t)hk * dd;
 
   for (int k0 = 0; k0 < k_end; k0 += BK) {
     __syncthreads();  // every thread is done with the previous tile
@@ -129,7 +138,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       const int r = e / RV, c = e % RV;
       const int key = k0 + r;
       float fk[VEC], fv[VEC];
-      if (key < Sk) {
+      if (key < Sk && (!PAD || c * VEC < dd)) {
         Vec16<T>::unpack(repro::load16_ro(kb + key * kv_row + c * VEC), fk);
         Vec16<T>::unpack(repro::load16_ro(vb + key * kv_row + c * VEC), fv);
       } else {
@@ -206,9 +215,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   if (!q_ok) return;
   const float L = fmaxf(l, 1e-30f);
-  T* orow = out + (((size_t)b * Sq + qi) * Hq + h) * D;
+  T* orow = out + (((size_t)b * Sq + qi) * Hq + h) * dd;
 #pragma unroll
   for (int c = 0; c < NQ; ++c) {
+    if (PAD && 4 * (c * TPR + part) >= dd) continue;
     float f[4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) f[e] = acc[c][e] / L;
@@ -217,24 +227,27 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   if (part == 0) lse[((size_t)b * Hq + h) * Sq + qi] = m + logf(L);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool PAD = false>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse, int B, int Sq,
-           int Sk, int Hq, int Hkv, int causal, cudaStream_t stream) {
+           int Sk, int Hq, int Hkv, int d, int causal, cudaStream_t stream) {
   constexpr int BQ = THREADS / (D / PER);
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  flash_fwd_kernel<T, D><<<grid, THREADS, 0, stream>>>(
+  flash_fwd_kernel<T, D, PAD><<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), static_cast<float*>(lse), Sq, Sk, Hq, Hkv, causal,
-      1.0f / sqrtf((float)D));
+      1.0f / sqrtf((float)d), d);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_d(const void* q, const void* k, const void* v, void* out, void* lse, int B, int Sq,
              int Sk, int Hq, int Hkv, int D, int causal, cudaStream_t stream) {
-  if (D == 32) return launch<T, 32>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, causal, stream);
-  if (D == 64) return launch<T, 64>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, causal, stream);
-  if (D == 128) return launch<T, 128>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, causal, stream);
+  if (D == 32) return launch<T, 32>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, D, causal, stream);
+  if (D == 64) return launch<T, 64>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, D, causal, stream);
+  if (D == 128) return launch<T, 128>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, D, causal, stream);
+  if (repro::padded_head_dim<T>(D))
+    return launch<T, repro::kMaxHeadDim, true>(q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, D, causal,
+                                               stream);
   return -1;
 }
 
@@ -243,7 +256,8 @@ int launch_d(const void* q, const void* k, const void* v, void* out, void* lse, 
 // Returns the launch's cudaError_t (0 on success), or -1 for arguments the
 // kernel does not take.  q, out: (B, Sq, Hq, D); k, v: (B, Sk, Hkv, D);
 // lse: (B, Hkv, Hq / Hkv, Sq) fp32; all contiguous, on the device, 16-byte
-// aligned; D one of 32, 64, 128.
+// aligned; D a multiple of the 16-byte vector (8 bf16, 4 fp32) and at
+// most 128.
 extern "C" int repro_flash_attention(const void* q, const void* k, const void* v, void* out,
                                      void* lse, int B, int Sq, int Sk, int Hq, int Hkv, int D,
                                      int causal, int is_bf16, void* stream) {

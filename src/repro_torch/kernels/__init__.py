@@ -7,6 +7,6 @@ tensor), with `ops.py` as the entry the model calls and `ref.py` the plain
 versions under kernel-oriented names.  `_build.py` compiles the sources with
 `nvcc` at first use and loads the library with `ctypes`.
 
-Ported: `rms_norm`, `decode_attention`, `flash_attention`.  Still to port
-from `repro.kernels`: `ssm_scan` (ROADMAP Queue 2).
+Ported: `rms_norm`, `decode_attention`, `flash_attention`, `ssm_scan`: every
+Pallas kernel of `repro.kernels`.
 """

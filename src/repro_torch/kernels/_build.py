@@ -113,7 +113,7 @@ def build() -> Path:
     return lib
 
 
-_PTR, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_PTR, _INT, _I64, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 #: C signatures of the launchers; each returns the launch's cudaError_t.
 SIGNATURES = {
@@ -124,6 +124,9 @@ SIGNATURES = {
     "repro_decode_attention": [_PTR] * 8 + [_INT] * 8 + [_PTR],
     # q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, D, causal, is_bf16, stream
     "repro_flash_attention": [_PTR] * 5 + [_INT] * 8 + [_PTR],
+    # x, Bm, Cm, dt, A_log, D, y, state, B, S, H, P, N, chunk,
+    # x / Bm / Cm batch and sequence strides (elements), is_bf16, stream
+    "repro_ssm_scan": [_PTR] * 8 + [_INT] * 6 + [_I64] * 6 + [_INT, _PTR],
 }
 
 
@@ -148,3 +151,17 @@ def check(code: int, what: str) -> None:
     if code != 0:
         text = library().repro_error_string(code).decode() if code > 0 else "unsupported arguments"
         raise RuntimeError(f"{what}: kernel launch failed with code {code} ({text})")
+
+
+MAX_HEAD_DIM = 128
+
+
+def check_head_dim(what: str, d: int, dtype) -> None:
+    """Raise unless the attention kernels take d_head ``d`` for ``dtype``:
+    any multiple of a 16-byte vector's values (8 bf16, 4 fp32) up to 128.
+    32, 64 and 128 run exact instances, the others one padded to 128
+    (``csrc/common.cuh``, ``padded_head_dim``)."""
+    vec = 16 // dtype.itemsize
+    if d <= 0 or d % vec or d > MAX_HEAD_DIM:
+        raise ValueError(f"{what}: d_head {d} not supported (takes multiples of {vec} "
+                         f"up to {MAX_HEAD_DIM})")

@@ -7,7 +7,9 @@ The kernel reads the caches in their native ``(B, Sk, Hkv, D)`` layout (no
 transposed copy), splits ``Sk`` over blocks so that ``B * Hkv`` small
 problems still fill the card, and merges the splits' partial softmax states
 in a second kernel.  The number of splits comes from the shapes alone, so a
-row's result is the same whatever else is in the batch.
+row's result is the same whatever else is in the batch.  d_head 32, 64 and
+128 run exact instances; any other multiple of the 16-byte vector up to
+128 (zamba2-7b's 112) runs one padded to 128.
 
 Plain version: `decode_attention_plain`, which is `gqa_reference` with the
 prefix mask, and zeros where ``kv_len == 0`` (as both kernels give).
@@ -24,7 +26,6 @@ from repro_torch.models.attention import gqa_reference
 from . import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_D_HEADS = (32, 64, 128)
 _MAX_GROUP = 8
 _SPLIT_ALIGN = 64      # keys; a split is a multiple of this
 _MIN_SPLIT = 256       # keys; shorter splits are not worth a block
@@ -79,9 +80,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     if not q.is_cuda:
         return decode_attention_plain(q, k_cache, v_cache, kv_len)
 
-    if D not in _D_HEADS or Hq // Hkv > _MAX_GROUP:
-        raise ValueError(f"decode_attention: d_head {D} (takes {_D_HEADS}) or "
-                         f"group {Hq // Hkv} (at most {_MAX_GROUP}) not supported")
+    _build.check_head_dim("decode_attention", D, q.dtype)
+    if Hq // Hkv > _MAX_GROUP:
+        raise ValueError(f"decode_attention: group {Hq // Hkv} not supported "
+                         f"(at most {_MAX_GROUP})")
     if k_cache.device != q.device or v_cache.device != q.device:
         raise ValueError("decode_attention: q and the caches lie on different devices")
     if not (q.is_contiguous() and k_cache.is_contiguous() and v_cache.is_contiguous()):

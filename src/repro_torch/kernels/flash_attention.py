@@ -10,7 +10,9 @@ the bf16 dense peak, against about 85 MB moved (0.025 ms).  The kernel
 reads q, k and v in their native ``(B, S, H, D)`` layout, masks ragged
 edges instead of asking the lengths to divide the blocks, and skips key
 tiles wholly above the causal diagonal.  Its products run on the fp32
-cores, not the tensor cores (see the source's note).
+cores, not the tensor cores (see the source's note).  d_head 32, 64 and 128
+run exact instances; any other multiple of the 16-byte vector up to 128
+(zamba2-7b's 112) runs one padded to 128.
 
 Plain version: `flash_attention_plain`, which is `gqa_reference` plus the
 log-sum-exp of the same masked scores.
@@ -27,7 +29,6 @@ from repro_torch.models.attention import NEG_INF, gqa_reference
 from . import _build
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_D_HEADS = (32, 64, 128)
 
 
 def flash_attention_plain(q, k, v, causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -66,8 +67,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal)
 
-    if D not in _D_HEADS:
-        raise ValueError(f"flash_attention: d_head {D} not supported (takes {_D_HEADS})")
+    _build.check_head_dim("flash_attention", D, q.dtype)
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k and v lie on different devices")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):

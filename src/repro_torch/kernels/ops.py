@@ -14,6 +14,7 @@ import contextlib
 from . import decode_attention as _decode
 from . import flash_attention as _flash
 from . import rmsnorm as _rmsnorm
+from . import ssm_scan as _ssm
 
 _force_plain = False
 
@@ -46,3 +47,10 @@ def flash_attention(q, k, v, causal: bool = True):
     if _force_plain:
         return _flash.flash_attention_plain(q, k, v, causal)
     return _flash.flash_attention(q, k, v, causal)
+
+
+def ssm_scan(x, Bm, Cm, dt, A_log, D, chunk: int = 64):
+    """(y, final state): see `repro_torch.kernels.ssm_scan`."""
+    if _force_plain:
+        return _ssm.ssm_scan_plain(x, Bm, Cm, dt, A_log, D, chunk)
+    return _ssm.ssm_scan(x, Bm, Cm, dt, A_log, D, chunk)

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 from repro_torch.models.attention import gqa_reference
 from repro_torch.models.layers import rms_norm as _rms_norm_model
+from repro_torch.models.ssm import ssd_chunked, ssd_reference
 
 
 def flash_attention_ref(q, k, v, causal: bool = True):
@@ -20,3 +21,12 @@ def decode_attention_ref(q, k_cache, v_cache, kv_len):
 
 def rms_norm_ref(x, scale, eps: float = 1e-5):
     return _rms_norm_model(x, scale, eps)
+
+
+def ssm_scan_ref(x, Bm, Cm, dt, A_log, D, chunk: int = 64):
+    """Chunked SSD (itself held against the sequential `ssd_reference`)."""
+    return ssd_chunked(x, Bm, Cm, dt, A_log, D, chunk)
+
+
+def ssm_scan_sequential_ref(x, Bm, Cm, dt, A_log, D):
+    return ssd_reference(x, Bm, Cm, dt, A_log, D)

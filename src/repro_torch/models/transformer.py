@@ -1,4 +1,4 @@
-"""Decoder-LM assembly, dense part.
+"""Decoder-LM assembly: the dense and the Mamba2 hybrid families.
 
 Layer stacks are grouped into their minimal repeating *period*; the params
 and caches of the period's layers carry a leading ``(n_full,)`` axis, as in
@@ -6,17 +6,22 @@ and caches of the period's layers carry a leading ``(n_full,)`` axis, as in
 (``x[:, slot]``) carry over leaf for leaf.  Where the reference scans that
 axis with `jax.lax.scan`, `forward` runs a Python loop over it.
 
-This slice supports period-1 stacks of attention + FFN blocks (the dense
-family: granite, qwen1.5, nemotron).  MoE, Mamba2 / xLSTM mixers, zamba2's
-shared block, the encoder and cross-attention, vision prefixes and hoisted
-RoPE tables raise `NotImplementedError` (ROADMAP Queue 1 items 10-13).
+Supported: stacks of attention + FFN blocks (the dense family: granite,
+qwen1.5, nemotron) and of Mamba2 mixers with zamba2's weight-shared
+attention block, applied at the start of each period of
+``shared_attn_every`` layers and before each tail layer whose index is a
+multiple of it; its KV caches are per depth (``shared`` stacked over the
+periods, ``tail_shared`` a list).  MoE and xLSTM blocks, the encoder and
+cross-attention, vision prefixes and hoisted RoPE tables raise
+`NotImplementedError` (ROADMAP Queue 1 items 11-13).
 
 `forward` covers full-sequence and cached (prefill-into-cache, decode) runs
 via the optional cache, and runs under autograd when grad is enabled (the
 serving steps turn it off); `lm_loss` is the training loss.  The cache's K
-and V are updated IN PLACE.  Each stacked parameter leaf is unbound once a
-forward (`torch.unbind`, whose backward stacks the layers' gradients in one
-allocation) instead of being indexed layer by layer.
+and V, conv windows and SSM states are updated IN PLACE.  Each stacked
+parameter leaf is unbound once a forward (`torch.unbind`, whose backward
+stacks the layers' gradients in one allocation) instead of being indexed
+layer by layer.
 """
 
 from __future__ import annotations
@@ -30,7 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .._tree import tree_map
 from .attention import attention, init_attention, init_kv_cache
-from .config import BLOCK_ATTN, ModelConfig
+from .config import BLOCK_ATTN, BLOCK_MAMBA2, ModelConfig
 from .ffn import ffn, init_ffn
 from .layers import (
     apply_linear,
@@ -44,6 +49,7 @@ from .layers import (
     positions_for,
     unembed,
 )
+from .ssm import init_mamba2, init_ssm_cache, mamba2_block
 
 
 # ---------------------------------------------------------------- layout --
@@ -79,30 +85,26 @@ def stack_layout(cfg: ModelConfig) -> StackLayout:
     return StackLayout(pattern, p, n_full, tail, bool(cfg.shared_attn_every))
 
 
-def _dense_layout(cfg: ModelConfig) -> StackLayout:
-    """The layout, or `NotImplementedError` for what this slice lacks."""
+_PORTED_KINDS = {BLOCK_ATTN, BLOCK_MAMBA2}
+
+
+def _layout(cfg: ModelConfig) -> StackLayout:
+    """The layout, or `NotImplementedError` for what the port still lacks."""
     layout = stack_layout(cfg)
-    if layout.shared_attn:
-        raise NotImplementedError("zamba2 shared attention: ROADMAP Queue 1 item 10")
     if cfg.n_encoder_layers:
         raise NotImplementedError("encoder-decoder: ROADMAP Queue 1 item 13")
     if cfg.mrope or cfg.vision_stub_patches:
         raise NotImplementedError("VLM / M-RoPE: ROADMAP Queue 1 item 13")
-    other = sorted(set(layout.kinds) - {BLOCK_ATTN})
+    other = sorted(set(layout.kinds) - _PORTED_KINDS)
     if other:
         raise NotImplementedError(
-            f"block kinds {other}: ROADMAP Queue 1 items 10-12")
+            f"block kinds {other}: ROADMAP Queue 1 items 11-12")
     return layout
 
 
 # ------------------------------------------------------------------ init --
-def init_block(generator, cfg: ModelConfig, kind: str, dtype, cross: bool = False,
-               device=None) -> Dict:
-    if kind != BLOCK_ATTN or cross:
-        raise NotImplementedError(f"block kind {kind!r} (cross={cross}): "
-                                  "ROADMAP Queue 1 items 10-13")
+def _init_attn_block(generator, cfg: ModelConfig, dtype, device) -> Dict:
     d = cfg.d_model
-    device = generator.device if device is None else device
     return {
         "norm1": init_rmsnorm(d, dtype, device),
         "attn": init_attention(generator, cfg, dtype, device=device),
@@ -111,11 +113,25 @@ def init_block(generator, cfg: ModelConfig, kind: str, dtype, cross: bool = Fals
     }
 
 
+def init_block(generator, cfg: ModelConfig, kind: str, dtype, cross: bool = False,
+               device=None) -> Dict:
+    if kind not in _PORTED_KINDS or cross:
+        raise NotImplementedError(f"block kind {kind!r} (cross={cross}): "
+                                  "ROADMAP Queue 1 items 11-13")
+    device = generator.device if device is None else device
+    if kind == BLOCK_MAMBA2:
+        return {"norm1": init_rmsnorm(cfg.d_model, dtype, device),
+                "mixer": init_mamba2(generator, cfg, dtype, device=device)}
+    return _init_attn_block(generator, cfg, dtype, device)
+
+
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      cross_len: int = 0, device="cuda") -> Dict:
-    if kind != BLOCK_ATTN or cross_len:
+    if kind not in _PORTED_KINDS or cross_len:
         raise NotImplementedError(f"cache for block kind {kind!r} "
-                                  f"(cross_len={cross_len}): ROADMAP Queue 1 items 10-13")
+                                  f"(cross_len={cross_len}): ROADMAP Queue 1 items 11-13")
+    if kind == BLOCK_MAMBA2:
+        return {"mixer": init_ssm_cache(cfg, batch, device)}
     return {"attn": init_kv_cache(cfg, batch, max_len, dtype_of(cfg.compute_dtype), device)}
 
 
@@ -125,10 +141,10 @@ def _stack_trees(trees: List[Any]):
 
 def init_lm(generator: torch.Generator, cfg: ModelConfig, device=None) -> Dict:
     """Full parameter tree.  Stacked period params carry a leading
-    (n_full,) axis; tail layers are unstacked.  ``device`` defaults to the
-    generator's."""
+    (n_full,) axis; tail layers and the shared attention block are
+    unstacked.  ``device`` defaults to the generator's."""
     dtype = dtype_of(cfg.param_dtype)
-    layout = _dense_layout(cfg)
+    layout = _layout(cfg)
     device = generator.device if device is None else torch.device(device)
     params: Dict[str, Any] = {
         "embed": init_embedding(generator, cfg.vocab_size, cfg.d_model, dtype, device)}
@@ -140,6 +156,8 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig, device=None) -> Dict:
     params["blocks"] = blocks
     params["tail"] = [init_block(generator, cfg, kind, dtype, device=device)
                       for kind in layout.tail]
+    if layout.shared_attn:
+        params["shared_attn"] = _init_attn_block(generator, cfg, dtype, device)
     params["final_norm"] = init_rmsnorm(cfg.d_model, dtype, device)
     if not cfg.tie_embeddings:
         params["unembed"] = init_linear(generator, cfg.d_model, cfg.vocab_size,
@@ -149,7 +167,7 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig, device=None) -> Dict:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, cross_len: int = 0,
                per_slot_index: bool = False, device="cuda") -> Dict:
-    layout = _dense_layout(cfg)
+    layout = _layout(cfg)
     idx = torch.zeros((batch,) if per_slot_index else (), dtype=torch.int32,
                       device=device)
     cache: Dict[str, Any] = {"blocks": {}, "tail": [], "index": idx}
@@ -159,16 +177,36 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, cross_len: int = 0,
         cache["blocks"][f"pos{j}"] = _stack_trees(per)
     cache["tail"] = [init_block_cache(cfg, kind, batch, max_len, cross_len, device)
                      for kind in layout.tail]
+    if layout.shared_attn:
+        shared = [init_block_cache(cfg, BLOCK_ATTN, batch, max_len, device=device)
+                  for _ in range(layout.n_full)]
+        cache["shared"] = _stack_trees(shared)
+        cache["tail_shared"] = [init_block_cache(cfg, BLOCK_ATTN, batch, max_len, device=device)
+                                for _ in range(len(_tail_shared_at(cfg, layout)))]
     return cache
+
+
+def _tail_shared_at(cfg: ModelConfig, layout: StackLayout) -> List[int]:
+    """The tail positions that the shared block runs before: those whose
+    layer index is a multiple of ``shared_attn_every``."""
+    if not layout.shared_attn:
+        return []
+    return [t for t in range(len(layout.tail))
+            if (layout.n_full * layout.period + t) % cfg.shared_attn_every == 0]
 
 
 def reset_slot(cache: Dict, slot) -> Dict:
     """Zero one batch slot across the whole cache, IN PLACE, and return the
-    cache (continuous batching: a freed slot is wiped before a new request
-    is admitted; the index must be per-slot)."""
+    cache (continuous batching: recurrent SSM states carry no positional
+    mask, so a freed slot is wiped before a new request is admitted; the
+    index must be per-slot)."""
     cache["index"][slot] = 0
     tree_map(lambda x: x[:, slot].zero_(), cache["blocks"])
     tree_map(lambda x: x[slot].zero_(), cache["tail"])
+    if "shared" in cache:
+        tree_map(lambda x: x[:, slot].zero_(), cache["shared"])
+    if "tail_shared" in cache:
+        tree_map(lambda x: x[slot].zero_(), cache["tail_shared"])
     return cache
 
 
@@ -194,13 +232,30 @@ def _attn_block(bp, x, cfg, positions, cache, index, encoder_out, kind,
     return x + ffn(bp["ffn"], h2, cfg), new_cache
 
 
-def _period(x, bp, cfg, kinds, positions, cslice, index):
-    """One period of the stack (the reference's scanned ``period_fn``)."""
+def apply_block(kind, bp, x, cfg, *, positions, cache, index):
+    """One layer: an attention + FFN block (zamba2's shared block too, with
+    its own per-depth KV cache), or a Mamba2 mixer block.  The cache, if
+    any, is updated in place."""
+    if kind == BLOCK_ATTN:
+        return _attn_block(bp, x, cfg, positions, cache, index, None, kind)[0]
+    h = _bar(fused_rms_norm(x, bp["norm1"]["scale"], cfg.norm_eps), cfg)
+    m, _ = mamba2_block(bp["mixer"], h, cfg, None if cache is None else cache["mixer"])
+    return x + m
+
+
+def _period(x, bp, shared, cfg, kinds, positions, cslice, shared_cache, index):
+    """One period of the stack (the reference's scanned ``period_fn``): the
+    shared attention block first, when the stack has one, then the
+    period's layers."""
     if cfg.bf16_cotangent:
         x = bf16_cotangent_barrier(x)
+    if shared is not None:
+        x = apply_block(BLOCK_ATTN, shared, x, cfg, positions=positions, cache=shared_cache,
+                        index=index)
     for j, kind in enumerate(kinds):
         cj = None if cslice is None else cslice[f"pos{j}"]
-        x, _ = _attn_block(bp[f"pos{j}"], x, cfg, positions, cj, index, None, kind)
+        x = apply_block(kind, bp[f"pos{j}"], x, cfg, positions=positions, cache=cj,
+                        index=index)
     return x
 
 
@@ -232,9 +287,10 @@ def forward(
     """Returns (hidden (B,S,d) -- NOT logits; see `logits_fn` --, new_cache,
     aux_loss).  Runs under autograd when grad is enabled.
 
-    ``new_cache`` shares its K/V tensors with ``cache``: they are written in
-    place; only ``index`` is a new tensor.  ``remat="block"`` checkpoints
-    each period (`torch.utils.checkpoint`, recomputed in the backward) and
+    ``new_cache`` shares its K/V, conv-window and SSM-state tensors with
+    ``cache``: they are written in place; only ``index`` is a new tensor.
+    ``remat="block"`` checkpoints each period (`torch.utils.checkpoint`,
+    recomputed in the backward) and
     ``bf16_cotangent`` places the reference's barriers; both shape the
     backward only.  ``psum_barrier`` is accepted and ignored (it shapes the
     reference's compiled tensor-parallel program).  ``remat="dots"``,
@@ -249,7 +305,7 @@ def forward(
     if cfg.remat not in ("none", "block"):
         raise NotImplementedError(f"remat={cfg.remat!r}: ROADMAP Queue 1 item 5")
     cd = dtype_of(cfg.compute_dtype)
-    layout = _dense_layout(cfg)
+    layout = _layout(cfg)
     if input_embeds is not None:
         x = input_embeds.to(cd)
     else:
@@ -261,21 +317,31 @@ def forward(
     index = cache["index"] if cache is not None else None
 
     remat = cfg.remat == "block" and torch.is_grad_enabled()
+    shared = params.get("shared_attn") if layout.shared_attn else None
     layers = _unstack(params["blocks"], layout.n_full)
     for i, bp in enumerate(layers):
-        cslice = None if cache is None else tree_map(lambda t: t[i], cache["blocks"])
-        args = (x, bp, cfg, layout.period_kinds, positions, cslice, index)
+        cslice = sc = None
+        if cache is not None:
+            cslice = tree_map(lambda t: t[i], cache["blocks"])
+            if shared is not None:
+                sc = tree_map(lambda t: t[i], cache["shared"])
+        args = (x, bp, shared, cfg, layout.period_kinds, positions, cslice, sc, index)
         x = checkpoint(_period, *args, use_reentrant=False) if remat else _period(*args)
+    shared_at = _tail_shared_at(cfg, layout)
     for t, kind in enumerate(layout.tail):
+        if t in shared_at:
+            sc = None if cache is None else cache["tail_shared"][shared_at.index(t)]
+            x = apply_block(BLOCK_ATTN, shared, x, cfg, positions=positions, cache=sc,
+                            index=index)
         cj = None if cache is None else cache["tail"][t]
-        x, _ = _attn_block(params["tail"][t], x, cfg, positions, cj, index, None, kind)
+        x = apply_block(kind, params["tail"][t], x, cfg, positions=positions, cache=cj,
+                        index=index)
 
     x = _bar(x, cfg)
     x = fused_rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     new_cache = None
     if cache is not None:
-        new_cache = {"blocks": cache["blocks"], "tail": cache["tail"],
-                     "index": cache["index"] + S}
+        new_cache = dict(cache, index=cache["index"] + S)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, new_cache, aux
 

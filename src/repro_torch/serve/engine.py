@@ -4,8 +4,8 @@
 `ServeEngine` drives the decode step for real requests, prefilling a
 request *through* the decode step, one token a step, into its slot.
 
-Everything runs on ``device`` (default ``"cuda"``); the K/V cache is
-updated in place.  The step functions run without autograd: their logits
+Everything runs on ``device`` (default ``"cuda"``); the cache (K/V, and
+the conv windows and SSM states of a hybrid stack) is updated in place.  The step functions run without autograd: their logits
 carry no graph.
 """
 
@@ -29,7 +29,8 @@ def make_prefill_step(cfg: ModelConfig, max_len: int, cross_len: int = 0,
     """(params, batch) -> (cache, last_token_logits).
 
     batch: {"tokens": (B,S)} (+ positions).  The cache is allocated inside
-    (zeros).  Dense decoders only.
+    (zeros), so the Mamba2 mixers of a hybrid stack prefill from a zero
+    state through the chunked scan.  Decoder-only stacks (dense and hybrid).
     """
     if cross_len or cfg.n_encoder_layers:
         raise NotImplementedError("encoder-decoder prefill: ROADMAP Queue 1 item 13")
@@ -188,16 +189,22 @@ class ServeEngine:
     # a destination engine built from the same config/params/rng_seed, and
     # decoding continues bit-identically.
     def export_slot(self, slot: int) -> Dict:
-        """Deep-copy one slot's KV state + write offset.  The tensors are
-        clones: the engine's cache is written in place, and the payload must
-        not change when the engine steps on."""
+        """Deep-copy one slot's KV / recurrent state + write offset (and
+        the shared block's per-depth caches of a hybrid stack).  The tensors
+        are clones: the engine's cache is written in place, and the payload
+        must not change when the engine steps on."""
         c = self.cache
-        return {
+        state = {
             "index": c["index"][slot].clone(),
             "blocks": tree_map(lambda x: x[:, slot].clone(), c["blocks"]),
             "tail": tree_map(lambda x: x[slot].clone(), c["tail"]),
             "offset": int(self.offsets[slot]),
         }
+        if "shared" in c:
+            state["shared"] = tree_map(lambda x: x[:, slot].clone(), c["shared"])
+        if "tail_shared" in c:
+            state["tail_shared"] = tree_map(lambda x: x[slot].clone(), c["tail_shared"])
+        return state
 
     def import_slot(self, slot: int, state: Dict) -> None:
         """Install an `export_slot` payload into ``slot`` (overwrites it)."""
@@ -205,4 +212,8 @@ class ServeEngine:
         c["index"][slot] = state["index"].to(self.device)
         tree_map(lambda x, v: x[:, slot].copy_(v), c["blocks"], state["blocks"])
         tree_map(lambda x, v: x[slot].copy_(v), c["tail"], state["tail"])
+        if "shared" in c:
+            tree_map(lambda x, v: x[:, slot].copy_(v), c["shared"], state["shared"])
+        if "tail_shared" in c:
+            tree_map(lambda x, v: x[slot].copy_(v), c["tail_shared"], state["tail_shared"])
         self.offsets[slot] = state["offset"]

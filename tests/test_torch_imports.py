@@ -34,7 +34,8 @@ def test_every_submodule_imports_without_jax_or_repro():
             "repro_torch.kernels.flash_attention", "repro_torch.serve.engine",
             "repro_torch.convert", "repro_torch.configs.granite_3_2b",
             "repro_torch.train.optimizer", "repro_torch.train.train_step",
-            "repro_torch.train.trainer", "repro_torch.data.pipeline"} <= set(names)
+            "repro_torch.train.trainer", "repro_torch.data.pipeline",
+            "repro_torch.models.ssm", "repro_torch.kernels.ssm_scan"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -78,7 +79,7 @@ def test_no_source_calls_a_library_kernel_or_compiler():
 
 def test_build_plan_needs_no_nvcc(tmp_path, monkeypatch):
     names = [p.name for p in _build.sources()]
-    assert names == ["decode_attention.cu", "flash_attention.cu", "rmsnorm.cu"]
+    assert names == ["decode_attention.cu", "flash_attention.cu", "rmsnorm.cu", "ssm_scan.cu"]
     assert [p.name for p in _build.headers()] == ["common.cuh"]
     cmd = _build.compile_command(_build.sources()[0], tmp_path / "x.o")
     assert cmd[0] == "nvcc" and "arch=compute_90a,code=sm_90a" in cmd and "-c" in cmd
@@ -89,9 +90,10 @@ def test_build_plan_needs_no_nvcc(tmp_path, monkeypatch):
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
     assert _build.library_path().parent == tmp_path
     assert set(_build.SIGNATURES) == {"repro_rms_norm", "repro_decode_attention",
-                                      "repro_flash_attention"}
+                                      "repro_flash_attention", "repro_ssm_scan"}
     assert len(_build.SIGNATURES["repro_decode_attention"]) == 17
     assert len(_build.SIGNATURES["repro_flash_attention"]) == 14
+    assert len(_build.SIGNATURES["repro_ssm_scan"]) == 22
 
 
 def test_source_hash_follows_the_sources(tmp_path, monkeypatch):
