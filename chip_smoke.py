@@ -287,15 +287,30 @@ def phase_device(torch):
     return smi[0]
 
 
+# The tensor-core instances: each must hold HMMA instructions in its SASS.
+TENSOR_CORE_KERNELS = ("flash_fwd_bf16_kernel", "ssm_scan_bf16_kernel")
+
+
 def phase_build(verbose):
+    """Builds the library; prints each kernel instance's registers, spill
+    bytes (ptxas) and tensor-core instructions (HMMA in its SASS), and fails
+    if a tensor-core instance holds none.  Returns those resources."""
     from repro_torch.kernels import _build
     built_now = not _build.library_path().exists()
     t0 = time.perf_counter()
     _build.library()
-    emit(phase="build", seconds=round(time.perf_counter() - t0, 3), built_now=built_now,
-         sources=[p.name for p in _build.sources()], library=_build.library_path().name)
+    seconds = time.perf_counter() - t0
+    resources = _build.kernel_resources()
+    emit(phase="build", seconds=round(seconds, 3), built_now=built_now,
+         sources=[p.name for p in _build.sources()], library=_build.library_path().name,
+         kernels=resources)
     if verbose and built_now:
         print((_build.build_dir() / "build.log").read_text(), flush=True)
+    for name in TENSOR_CORE_KERNELS:
+        found = {k: r for k, r in resources.items() if k.split("<")[0] == name}
+        require(found and all(r.get("hmma", 0) > 0 for r in found.values()),
+                f"build: {name} holds no tensor-core instruction: {found}")
+    return resources
 
 
 RMS_CASES = [((8, 1, 2048), "bfloat16"), ((300, 512), "float32"),
@@ -333,6 +348,15 @@ FLASH_CASES = [
     ("ragged", 1, 1000, 1000, 8, 2, 64), ("sq<sk", 2, 77, 300, 4, 2, 64),
     ("ragged-mha-d112", 1, 1000, 1000, 8, 8, 112), ("sq<sk-d112", 2, 77, 300, 8, 2, 112),
 ]
+# bf16 alone: the tensor-core instance's edges (d_head 32, 112 and 128 with
+# Sq != Sk both ways, MQA, GQA 4:1 over 1000 rows, and d_head 96, which runs
+# the 128 instance with its last 32 columns zero).
+FLASH_BF16_CASES = [
+    ("sq<sk-d32", 2, 77, 300, 4, 2, 32), ("sq>sk-d112", 1, 1000, 333, 8, 4, 112),
+    ("sq>sk-d128", 2, 300, 77, 4, 2, 128), ("sq<sk-d128", 1, 100, 1000, 4, 4, 128),
+    ("mqa", 2, 1000, 1000, 8, 1, 64), ("gqa4-1000", 2, 1000, 1000, 16, 4, 64),
+    ("padded-d96", 1, 333, 333, 4, 2, 96),
+]
 FLASH_TRAIN = ("granite-3-2b train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 8, 64)
 FLASH_ZAMBA = ("zamba2-7b train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 32, 112)
 
@@ -340,6 +364,11 @@ FLASH_ZAMBA = ("zamba2-7b train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 32, 112
 # zamba2-7b's training shape (d_inner 7168 = 112 heads of 64, state 64).
 SSM_CASES = [(1, 128, 2, 16, 8, 32), (2, 256, 4, 64, 16, 64), (2, 192, 3, 32, 64, 64)]
 SSM_TRAIN = (TRAIN_BATCH, TRAIN_SEQ, 112, 64, 64, 64)
+# bf16 alone: chunk 32, P 16 and N 8, strided as `mamba2_block` hands them;
+# P 12 and N 4, whose rows are no multiple of 16 bytes (plain loads); and an
+# odd P 7 (y's rows on 2-byte boundaries).
+SSM_BF16_CASES = [((2, 96, 3, 16, 8, 32), True), ((1, 64, 3, 12, 4, 16), False),
+                  ((1, 64, 2, 7, 4, 16), False)]
 
 
 def flash_errors(torch, got, want, dt):
@@ -584,6 +613,9 @@ def phase_kernels(torch, device):
         for causal in (True, False):
             for dt in ("float32", "bfloat16"):
                 check_flash(torch, checks, case, causal, dt)
+    for case in FLASH_BF16_CASES:
+        for causal in (True, False):
+            check_flash(torch, checks, case, causal, "bfloat16")
     check_flash(torch, checks, FLASH_TRAIN, True, "bfloat16", control=True)
     torch.cuda.empty_cache()
     check_flash(torch, checks, FLASH_ZAMBA, True, "bfloat16", control=True)
@@ -595,6 +627,8 @@ def phase_kernels(torch, device):
         for dt in ("float32", "bfloat16"):
             check_ssm(torch, checks, case, dt)
     check_ssm(torch, checks, SSM_CASES[1], "bfloat16", strided=True)
+    for case, strided in SSM_BF16_CASES:
+        check_ssm(torch, checks, case, "bfloat16", strided=strided)
     check_ssm(torch, checks, SSM_TRAIN, "bfloat16", strided=True, control=True)
     torch.cuda.empty_cache()
     check_ssm_decay(torch, checks)
@@ -982,12 +1016,14 @@ def _leaves(tree):
     return tree_leaves(tree)
 
 
-def phase_timing(torch, device, launches):
+def phase_timing(torch, device, launches, resources):
     """Times of the kernels at their paths' shapes (serving for rms_norm and
     decode_attention, training for flash_attention and ssm_scan; zamba2's
     d_head 112 beside granite's 64 for the attention kernels), beside their
     plain versions, one library call each where there is one, and the
-    card's bound.  ``launches`` holds each path's counts by phase name."""
+    card's bound.  ``launches`` holds each path's counts by phase name;
+    ``resources`` the build's registers, spills and HMMA counts by kernel
+    instance, which the tensor-core kernels' rows name."""
     import torch.nn.functional as F
     from repro_torch.kernels.rmsnorm import rms_norm, rms_norm_plain
 
@@ -1047,8 +1083,8 @@ def phase_timing(torch, device, launches):
                     launches=sum(counts.values()), launches_by_path=counts,
                     library="torch.nn.functional.scaled_dot_product_attention"
                             "(is_causal, enable_gqa)",
-                    **flash_times(torch, timer, device, FLASH_TRAIN),
-                    zamba2_d112=flash_times(torch, timer, device, FLASH_ZAMBA)))
+                    **flash_times(torch, timer, device, FLASH_TRAIN, resources),
+                    zamba2_d112=flash_times(torch, timer, device, FLASH_ZAMBA, resources)))
     torch.cuda.empty_cache()
 
     counts = by_path("ssm_scan")
@@ -1056,7 +1092,7 @@ def phase_timing(torch, device, launches):
                     replaces="src/repro/kernels/ssm_scan.py:66",
                     launches=sum(counts.values()), launches_by_path=counts,
                     library="none: no single PyTorch call computes the scan",
-                    **ssm_times(torch, timer, device, SSM_TRAIN)))
+                    **ssm_times(torch, timer, device, SSM_TRAIN, resources)))
     return out
 
 
@@ -1114,7 +1150,13 @@ def decode_times(torch, timer, device, shape):
                 at_served_lengths=served)
 
 
-def flash_times(torch, timer, device, case):
+def instance(resources, name):
+    """The build's registers, spill bytes and HMMA count of one kernel
+    instance, under its name (empty where the build phase did not run)."""
+    return dict(instance=name, **resources.get(name, {}))
+
+
+def flash_times(torch, timer, device, case, resources):
     """flash_attention at a train phase's shape, causal, bf16; SDPA beside."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
@@ -1139,14 +1181,17 @@ def flash_times(torch, timer, device, case):
     # q, k, v read once; out (q's size) and the fp32 lse written once.
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + B * Hq * S * 4
     b_ms, b_by = bound(nbytes, flops, dt)
-    return dict(max_abs_err=err, tol=FLASH_TOL[dt], ms=min(ms, ms2), plain_ms=plain,
+    best = min(ms, ms2)
+    name = f"flash_fwd_bf16_kernel<{D}, false>"     # the training shapes' D are exact instances
+    return dict(max_abs_err=err, tol=FLASH_TOL[dt], ms=best, plain_ms=plain,
                 bound_ms=b_ms, bound_by=b_by, library_ms=lib, call_ms=min(call, call2),
                 plain_call_ms=plain_call, library_call_ms=lib_call, bytes=nbytes, flops=flops,
-                achieved_tflops=flops / (min(ms, ms2) * 1e-3) / 1e12,
-                shape=[B, S, Hq, Hkv, D], dtype=dt, causal=True)
+                achieved_tflops=flops / (best * 1e-3) / 1e12,
+                achieved_gb_per_s=nbytes / (best * 1e-3) / 1e9,
+                shape=[B, S, Hq, Hkv, D], dtype=dt, causal=True, **instance(resources, name))
 
 
-def ssm_times(torch, timer, device, case):
+def ssm_times(torch, timer, device, case, resources):
     """ssm_scan at the train_zamba2 phase's shape, bf16, with x, B and C
     strided as `mamba2_block` hands them; the plain version beside it.  No
     single PyTorch call computes the scan, so there is no library time."""
@@ -1178,7 +1223,8 @@ def ssm_times(torch, timer, device, case):
                 fp32_core_ops_ms=flops / PEAK_FLOPS["float32"] * 1e3,
                 achieved_gb_per_s=nbytes / (best * 1e-3) / 1e9,
                 achieved_tflops=flops / (best * 1e-3) / 1e12,
-                shape=list(case), dtype=dt, strided=True)
+                shape=list(case), dtype=dt, strided=True,
+                **instance(resources, "ssm_scan_bf16_kernel"))
 
 
 def run_engine_steps(torch, cfg, params, device, n_steps, requests, **kw):
@@ -1365,8 +1411,9 @@ def main(argv=None):
             require(launches_per_step(cfg, train) == MAIN_PATH_COUNTS[path],
                     f"{path}: launches a step {launches_per_step(cfg, train)}, "
                     f"expected {MAIN_PATH_COUNTS[path]}")
+        resources = {}
         if run("build"):
-            phase_build(args.verbose_build)
+            resources = phase_build(args.verbose_build)
         if run("kernels"):
             phase_kernels(torch, device)
         if run("serve"):
@@ -1380,7 +1427,7 @@ def main(argv=None):
             launches["train_zamba2"] = phase_train(torch, device, paths["train_zamba2"][0],
                                                    ZAMBA_TRAIN_STEPS, "train_zamba2")
         if run("timing"):
-            kernels = phase_timing(torch, device, launches)
+            kernels = phase_timing(torch, device, launches, resources)
             emit(phase="timing", kernels=kernels)
             if not only:
                 for path, (cfg, train) in paths.items():

@@ -72,10 +72,11 @@ struct Vec16<__nv_bfloat16> {
   }
 };
 
-// The attention kernels' d_head: 32, 64 and 128 run exact instances; any
-// other multiple of the 16-byte vector up to 128 runs the instance padded to
-// 128 (rows read at their own stride D, lanes past D masked).  The wrappers
-// hold the same rule (kernels/_build.py, check_head_dim).
+// The attention kernels' d_head: 32, 64 and 128 run exact instances (and
+// 112 in bf16 flash attention); any other multiple of the 16-byte vector up
+// to 128 runs the instance padded to 128 (rows read at their own stride D,
+// lanes past D masked).  The wrappers hold the same rule (kernels/_build.py,
+// check_head_dim).
 constexpr int kMaxHeadDim = 128;
 
 template <typename T>

@@ -18,10 +18,11 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -113,6 +114,77 @@ def build() -> Path:
     return lib
 
 
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+_SASS_FUNCTION = re.compile(r"^\s*Function : (\S+)")
+
+
+def parse_ptxas(text: str) -> Dict[str, Dict[str, int]]:
+    """Registers a thread and spill bytes (stores + loads) of each kernel,
+    by mangled name, from the ``-Xptxas -v`` lines of ``build.log``."""
+    out: Dict[str, Dict[str, int]] = {}
+    entry = None
+    for line in text.splitlines():
+        if m := _ENTRY.search(line):
+            entry = out.setdefault(m[1], {"registers": 0, "spill_bytes": 0})
+        elif entry is not None and (m := _SPILLS.search(line)):
+            entry["spill_bytes"] = int(m[1]) + int(m[2])
+        elif entry is not None and (m := _REGS.search(line)):
+            entry["registers"] = int(m[1])
+    return out
+
+
+def count_sass(text: str, opcode: str) -> Dict[str, int]:
+    """Instructions whose opcode starts with ``opcode`` (``HMMA``: the
+    tensor cores' mma), by function, in ``cuobjdump -sass`` output."""
+    out: Dict[str, int] = {}
+    fn = None
+    op = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?" + re.escape(opcode) + r"\b")
+    for line in text.splitlines():
+        if m := _SASS_FUNCTION.match(line):
+            fn = m[1]
+            out.setdefault(fn, 0)
+        elif fn is not None and op.search(line):
+            out[fn] += 1
+    return out
+
+
+def demangle(names: List[str]) -> Dict[str, str]:
+    """Mangled name -> ``kernel<args>`` (namespace and parameters dropped),
+    by ``c++filt`` where there is one; else the names as they are."""
+    tool = shutil.which("c++filt") or shutil.which("cu++filt")
+    if not names or tool is None:
+        return {n: n for n in names}
+    text = subprocess.run([tool], input="\n".join(names), capture_output=True, text=True).stdout
+    short = {}
+    for name, full in zip(names, text.splitlines()):
+        # a template's demangled name leads with its return type, void
+        head = full.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
+        scope = head.split("<")[0]
+        short[name] = head[scope.rindex("::") + 2:] if "::" in scope else head
+    return short
+
+
+def kernel_resources() -> Dict[str, Dict[str, int]]:
+    """Each kernel instance of the built library: registers, spill bytes
+    (``build.log``, written by `build`) and tensor-core instructions
+    (``HMMA`` in ``cuobjdump -sass``), by demangled name.  Call after
+    `library()`; the ptxas lines are there only if this process built it."""
+    log = build_dir() / "build.log"
+    res = parse_ptxas(log.read_text()) if log.exists() else {}
+    nvcc = find_nvcc()
+    cuobjdump = Path(nvcc).parent / "cuobjdump" if nvcc else None
+    if cuobjdump is None or not cuobjdump.exists():
+        raise RuntimeError("cuobjdump not found beside nvcc")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(library_path())], capture_output=True,
+                          text=True, check=True).stdout
+    for name, n in count_sass(sass, "HMMA").items():
+        res.setdefault(name, {"registers": None, "spill_bytes": None})["hmma"] = n
+    names = demangle(sorted(res))
+    return {names[n]: res[n] for n in sorted(res)}
+
+
 _PTR, _INT, _I64, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 #: C signatures of the launchers; each returns the launch's cudaError_t.
@@ -159,8 +231,9 @@ MAX_HEAD_DIM = 128
 def check_head_dim(what: str, d: int, dtype) -> None:
     """Raise unless the attention kernels take d_head ``d`` for ``dtype``:
     any multiple of a 16-byte vector's values (8 bf16, 4 fp32) up to 128.
-    32, 64 and 128 run exact instances, the others one padded to 128
-    (``csrc/common.cuh``, ``padded_head_dim``)."""
+    32, 64 and 128 run exact instances, and in bf16 flash attention 112
+    too; the others run one padded to 128 (``csrc/common.cuh``,
+    ``padded_head_dim``)."""
     vec = 16 // dtype.itemsize
     if d <= 0 or d % vec or d > MAX_HEAD_DIM:
         raise ValueError(f"{what}: d_head {d} not supported (takes multiples of {vec} "

@@ -9,10 +9,13 @@ operations on an H100: ``4 * B * Hq * D * S**2 / 2`` = 1.37e11, 0.139 ms at
 the bf16 dense peak, against about 85 MB moved (0.025 ms).  The kernel
 reads q, k and v in their native ``(B, S, H, D)`` layout, masks ragged
 edges instead of asking the lengths to divide the blocks, and skips key
-tiles wholly above the causal diagonal.  Its products run on the fp32
-cores, not the tensor cores (see the source's note).  d_head 32, 64 and 128
-run exact instances; any other multiple of the 16-byte vector up to 128
-(zamba2-7b's 112) runs one padded to 128.
+tiles wholly above the causal diagonal.  bf16 runs FlashAttention-2 on the
+tensor cores (``mma.sync``, bf16 K and V tiles in a ``cp.async`` ring, P
+split in registers into bf16 hi + lo for P·V); d_head 32, 64, 112 (zamba2-7b's)
+and 128 are exact instances, any other multiple of 8 up to 128 runs the
+128 instance with its last columns zero.  fp32 keeps both products on the
+fp32 cores (d_head 32, 64 and 128 exact, other multiples of 4 padded to
+128), for the 2e-5 checks.  See the source's note.
 
 Plain version: `flash_attention_plain`, which is `gqa_reference` plus the
 log-sum-exp of the same masked scores.

@@ -5,12 +5,15 @@ head) the chunks in order, the (P, N) fp32 state carried across them, zero
 initial state; returns y ``(B, S, H, P)`` in x's type and the final state
 ``(B, H, P, N)`` fp32.  At zamba2-7b's training shape (B 2, S 4096, H 112,
 P 64, N 64, chunk 64, bf16) it is bound by bytes on an H100: x and y 235 MB,
-B, C, dt and the state 9.4 MB, 0.073 ms at 3.35 TB/s; its 3.0e10 fp32
-operations would take 0.45 ms on the fp32 cores, where this first version
-runs them (see the source's note).  The kernel reads x, B and C at their
-own batch and sequence strides, so the column slices of the conv output
-that `mamba2_block` hands it are not copied, and computes ``-exp(A_log)``
-and D per head itself.
+B, C, dt and the state 9.4 MB, 0.073 ms at 3.35 TB/s.  bf16 runs the four
+products of each chunk on the tensor cores (C·Bᵀ in bf16; W·x, C·Sᵀ and the
+state update in tf32 with their fp32 operand split into hi + lo, since one
+tf32 rounding misses the bf16 allowance), two blocks an SM, the next
+chunk's x, B, C and dt loaded by ``cp.async`` while this one computes;
+fp32 keeps its fp32-core path for the 2e-5 checks (see the source's note).
+The kernel reads x, B and C at their own batch and sequence strides, so
+the column slices of the conv output that `mamba2_block` hands it are not
+copied, and computes ``-exp(A_log)`` and D per head itself.
 
 The gradient is `_SSMScanFn`'s backward: plain autograd through
 `ssd_chunked`, recomputed on detached inputs (the reference trains through

@@ -1,0 +1,69 @@
+"""What the build reports about each kernel instance, read from the
+compiler's text: registers and spills from ptxas's ``-v`` lines, and
+tensor-core instructions from ``cuobjdump -sass``.  chip_smoke.py's build
+line prints them and fails when a tensor-core instance holds no HMMA; here
+the parsers run on fixed samples of both tools' output."""
+
+import shutil
+
+import pytest
+
+from repro_torch.kernels import _build
+
+FLASH_BF16 = ("_ZN51_GLOBAL__N__04cf38d3_18_flash_attention_cu_c45a2b1821flash_fwd_bf16_kernel"
+              "ILi64ELb0EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiiiiifi")
+SSM_F32 = ("_ZN44_GLOBAL__N__b4ec31e4_11_ssm_scan_cu_d2e4a81715ssm_scan_kernelEPKfS1_S1_S1_S1"
+           "_S1_PfS2_iiiiixxxxxx")
+
+PTXAS = f"""== flash_attention.cu
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '{FLASH_BF16}' for 'sm_90a'
+ptxas info    : Function properties for {FLASH_BF16}
+    56 bytes stack frame, 56 bytes spill stores, 64 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 56 bytes cumulative stack size
+== ssm_scan.cu
+ptxas info    : Compiling entry function '{SSM_F32}' for 'sm_90a'
+ptxas info    : Function properties for {SSM_F32}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 153 registers, used 1 barriers
+"""
+
+SASS = f"""
+Fatbin elf code:
+================
+arch = sm_90a
+
+\tcode for sm_90a
+\t\tFunction : {FLASH_BF16}
+\t.headerflags\t@"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   HMMA.16816.F32.BF16 R24, R4, R20, R24 ;
+        /*0020*/              @!P0 HMMA.16816.F32.BF16 R28, R4, R22, R28 ;
+        /*0030*/                   LDSM.16.M88.4 R8, [R2] ;
+\t\t..........
+
+\t\tFunction : {SSM_F32}
+        /*0000*/                   FFMA R3, R4, R5, R3 ;
+        /*0010*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+"""
+
+
+def test_parse_ptxas_reads_registers_and_spills_per_kernel():
+    got = _build.parse_ptxas(PTXAS)
+    assert got == {FLASH_BF16: {"registers": 128, "spill_bytes": 120},
+                   SSM_F32: {"registers": 153, "spill_bytes": 0}}
+    assert _build.parse_ptxas("no ptxas lines here") == {}
+
+
+@pytest.mark.parametrize("opcode,flash,ssm", [("HMMA", 2, 0), ("FFMA", 0, 1), ("LDSM", 1, 0)])
+def test_count_sass_counts_an_opcode_per_function(opcode, flash, ssm):
+    assert _build.count_sass(SASS, opcode) == {FLASH_BF16: flash, SSM_F32: ssm}
+
+
+def test_demangle_keeps_the_kernel_and_its_template_arguments():
+    if shutil.which("c++filt") is None and shutil.which("cu++filt") is None:
+        assert _build.demangle([FLASH_BF16]) == {FLASH_BF16: FLASH_BF16}
+        return
+    assert _build.demangle([FLASH_BF16, SSM_F32]) == {
+        FLASH_BF16: "flash_fwd_bf16_kernel<64, false>", SSM_F32: "ssm_scan_kernel"}
+    assert _build.demangle([]) == {}

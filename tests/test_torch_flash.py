@@ -213,3 +213,86 @@ class TestSelfAttentionMath:
         assert "_FlashAttentionBackward" in {type(f).__name__ for f in seen}
         (got * torch.from_numpy(w)).sum().backward()
         np.testing.assert_allclose(tx.grad.numpy(), np.asarray(want_dx), **GRAD_TOL)
+
+
+# chip_smoke.py's allowances for the bf16 kernel (FLASH_TOL): the output at
+# 5e-3 + 1e-2·|want|, the fp32 log-sum-exp at 1e-3.
+BF16_OUT_TOL, LSE_TOL = dict(atol=5e-3, rtol=1e-2), dict(atol=1e-3, rtol=0.0)
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def _tensor_core_flash(q, k, v, causal, split=True, l_from_rounded=False, tile=64):
+    """The bf16 `flash_attention` kernel's arithmetic (csrc/flash_attention
+    .cu, `flash_fwd_bf16_kernel`) in PyTorch on the CPU: key tiles of 64,
+    scores in log2 units, the online softmax in fp32, P split into bf16 hi
+    + lo for P·V (rounded once to bf16 without ``split``) and l summed from
+    the fp32 P (from the rounded P with ``l_from_rounded``).  Returns (out
+    fp32 before its rounding to q's type, lse fp32 (B, Hkv, G, Sq))."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G, log2e = Hq // Hkv, 1.4426950408889634
+    qf = q.float().permute(0, 2, 1, 3)                                   # (B,Hq,Sq,D)
+    kf, vf = (t.float().permute(0, 2, 1, 3).repeat_interleave(G, 1) for t in (k, v))
+    m = torch.full((B, Hq, Sq, 1), -1e30)
+    l, acc = torch.zeros((B, Hq, Sq, 1)), torch.zeros((B, Hq, Sq, D))
+    rows = torch.arange(Sq)[:, None]
+    for k0 in range(0, Sk, tile):
+        keys = torch.arange(k0, min(k0 + tile, Sk))[None]
+        seen = keys <= rows if causal else torch.ones((Sq, keys.shape[1]), dtype=torch.bool)
+        s = (qf @ kf[:, :, k0:k0 + tile].transpose(-1, -2)) * (log2e / D ** 0.5)
+        s = s.masked_fill(~seen, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.where(seen, torch.exp2(s - m_new), torch.zeros(()))
+        corr = torch.exp2(m - m_new)
+        hi = _bf16(p)
+        l = l * corr + (hi if l_from_rounded else p).sum(-1, keepdim=True)
+        vt = vf[:, :, k0:k0 + tile]
+        acc = acc * corr + (_bf16(p - hi) @ vt + hi @ vt if split else hi @ vt)
+        m = m_new
+    L = l.clamp_min(1e-30)
+    lse = ((m + torch.log2(L)) / log2e).squeeze(-1)
+    return (acc / L).permute(0, 2, 1, 3), lse.reshape(B, Hkv, G, Sq)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D", [
+    (1, 128, 128, 4, 4, 64), (2, 256, 256, 8, 2, 64), (2, 256, 256, 6, 3, 32),
+    (1, 512, 512, 4, 1, 128), (2, 77, 300, 4, 2, 32), (1, 200, 70, 4, 2, 112),
+    (2, 130, 130, 8, 1, 64)])
+def test_tensor_core_rounding_meets_the_bf16_allowance(B, Sq, Sk, Hq, Hkv, D, causal):
+    """P rounded to bf16 before P·V, emulated, against the reference's
+    `_flash_fwd_math` (one chunk each side, so the ragged lengths divide)
+    on the same bf16 inputs, at chip_smoke.py's bf16 allowances."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(20, B, Sq, Sk, Hq, Hkv, D, bf16=True)
+    want_out, want_lse = jattn._flash_fwd_math(jq, jk, jv, causal, 0, None, Sq, Sk)
+    out, lse = _tensor_core_flash(tq, tk, tv, causal)
+    assert lse.shape == (B, Hkv, Hq // Hkv, Sq)
+    np.testing.assert_allclose(_np(out.to(torch.bfloat16)), _np(want_out), **BF16_OUT_TOL)
+    np.testing.assert_allclose(_np(lse), _np(want_lse), **LSE_TOL)
+
+
+def test_split_p_is_closer_to_fp32_than_one_rounding():
+    """Why P is split into hi + lo: rounded once to bf16, P moves the fp32
+    output several times farther from the unrounded online softmax than
+    the split does.  (Both pass the per-call allowance; over a training
+    step the single rounding drifted the loss and gradient norm to their
+    train_vs_plain limits on the card, see PERF.md.)"""
+    (_, tq), (_, tk), (_, tv) = _qkv(22, 1, 512, 512, 4, 1, 64, bf16=True)
+    want, _ = flash_attention_plain(tq.float(), tk.float(), tv.float(), True)
+    err = {split: float((_tensor_core_flash(tq, tk, tv, True, split)[0] - want).abs().max())
+           for split in (True, False)}
+    assert 8 * err[True] < err[False], err
+
+
+def test_l_from_rounded_p_misses_the_lse_allowance():
+    """Why l sums the fp32 P: summed from P rounded once to bf16, the
+    log-sum-exp of long rows moves beyond its allowance."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(21, 1, 1000, 1000, 8, 2, 64, bf16=True)
+    _, want = jattn._flash_fwd_math(jq, jk, jv, True, 0, None, 200, 200)
+    err = {rounded: float(np.abs(_np(_tensor_core_flash(tq, tk, tv, True, False, rounded)[1])
+                                 - _np(want)).max())
+           for rounded in (False, True)}
+    assert err[False] <= LSE_TOL["atol"] < err[True], err

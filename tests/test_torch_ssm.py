@@ -297,3 +297,76 @@ def test_mamba2_block_routes_match_jax(zamba, S, cache, route, monkeypatch):
     monkeypatch.setattr(tscan, "ssm_scan", lambda *a, **k: calls.append(1) or real(*a, **k))
     _block_pair(zamba, S, cache, seed=20 + S)
     assert len(calls) == (1 if route == "kernel" else 0)
+
+
+# ------------------------------------------- the tensor-core instance's rounding --
+# chip_smoke.py's allowances for the bf16 scan: y at 5e-3 + 1e-2·|want| (one
+# bf16 rounding of nearly equal values), the fp32 state at 1e-3.
+BF16_Y_TOL = dict(atol=5e-3, rtol=1e-2)
+STATE_TOL = dict(atol=1e-3, rtol=1e-3)
+
+
+def _tf32(t):
+    """fp32 -> tf32 as the kernel's masks do (and as the tensor cores read
+    an fp32 operand): the low 13 mantissa bits cleared."""
+    return (t.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _tensor_core_scan(x, Bm, Cm, dt, A_log, D, chunk, split=True):
+    """The bf16 `ssm_scan` kernel's arithmetic (csrc/ssm_scan.cu,
+    `ssm_scan_bf16_kernel`) in PyTorch on the CPU: C B^T from the bf16
+    values (exact products); W, the carried state and wl·B, the fp32
+    operands of the other three products, taken as hi + lo tf32
+    (``split``) or as one tf32; x and C, bf16, exact.  Returns (y in bf16,
+    state)."""
+    R = (lambda a: _tf32(a) + _tf32(a - _tf32(a))) if split else _tf32
+    B, S, H, P = x.shape
+    N, nc, f32 = Bm.shape[-1], S // chunk, torch.float32
+    xc = x.reshape(B, nc, chunk, H, P).to(f32)
+    Bc, Cc = (t.reshape(B, nc, chunk, N).to(f32) for t in (Bm, Cm))
+    dtc = dt.reshape(B, nc, chunk, H)
+    cum = torch.cumsum(-torch.exp(A_log) * dtc, dim=2)
+    tri = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))[None, None, :, :, None]
+    decay = torch.exp((cum[:, :, :, None] - cum[:, :, None]).masked_fill(~tri, -np.inf))
+    G = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+    W = R(G[..., None] * (decay * dtc[:, :, None]))                      # (B,nc,i,j,H)
+    wl = torch.exp(cum[:, :, -1:] - cum) * dtc                           # (B,nc,L,H)
+    wB = R(wl[..., None] * Bc[:, :, :, None, :])                         # (B,nc,L,H,N)
+    state = torch.zeros((B, H, P, N))
+    ys = []
+    for c in range(nc):
+        inter = torch.einsum("bin,bhpn->bihp", Cc[:, c], R(state))
+        ys.append(torch.exp(cum[:, c])[..., None] * inter
+                  + torch.einsum("bijh,bjhp->bihp", W[:, c], xc[:, c]))
+        state = state * torch.exp(cum[:, c, -1])[..., None, None] \
+            + torch.einsum("blhp,blhn->bhpn", xc[:, c], wB[:, c])
+    y = torch.stack(ys, 1) + xc * D[:, None]
+    return y.reshape(B, S, H, P).to(x.dtype), state
+
+
+@pytest.mark.parametrize("case", SCAN_CASES + [(2, 96, 3, 16, 8, 32), (1, 64, 3, 12, 4, 16),
+                                               (1, 64, 2, 7, 4, 16)])
+def test_tensor_core_rounding_meets_the_bf16_allowance(case):
+    """The kernel's hi + lo tf32 products, emulated, against the Pallas
+    kernel in interpret mode on the same bf16 inputs, at chip_smoke.py's
+    bf16 allowances."""
+    B, S, H, P, N, chunk = case
+    j, t = _scan_inputs(B, S, H, P, N, seed=30, bf16=True)
+    jy, js = jops.ssm_scan(*j, chunk=chunk)
+    ty, ts = _tensor_core_scan(*t, chunk)
+    assert ty.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(ty), _np(jy), **BF16_Y_TOL)
+    np.testing.assert_allclose(_np(ts), _np(js), **STATE_TOL)
+
+
+def test_one_tf32_rounding_alone_misses_the_bf16_allowance():
+    """Why the kernel splits its fp32 operands: cut once to tf32 (10
+    mantissa bits), W, the state and wl·B move y beyond the bf16 allowance
+    at the training shape's P, N and chunk, where hi + lo stays within it."""
+    B, S, H, P, N, chunk = 1, 512, 4, 64, 64, 64
+    _, t = _scan_inputs(B, S, H, P, N, seed=31, bf16=True)
+    want, _ = tssm.ssd_chunked(*t, chunk)
+    allowed = BF16_Y_TOL["atol"] + BF16_Y_TOL["rtol"] * want.abs()
+    ratio = {split: float(((_tensor_core_scan(*t, chunk, split)[0].float() - want).abs()
+                           / allowed).max()) for split in (True, False)}
+    assert ratio[True] <= 1.0 < ratio[False], ratio
