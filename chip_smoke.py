@@ -5,21 +5,25 @@
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), holds
 each against its plain PyTorch version on the card, then drives the port's
-two paths with two models at full width (bf16, random weights from seed
-0): it serves requests through `repro_torch.serve.ServeEngine` and trains
-for a few steps through `repro_torch.train.Trainer` (2 x 4096 tokens a
-step, AdamW, block remat), with granite-3-2b (dense GQA, all 40 layers;
-phases ``serve``, ``train``) and zamba2-7b (Mamba2 hybrid with a shared
-attention block; all 81 layers served, 39 trained: ``serve_zamba2``,
-``train_zamba2``).  It checks that each path really went through its
-kernels (launch counts equal to their per-step formulas), that the
-kernels' path agrees with the plain path for serving and for training,
+paths with three models at full width (bf16, random weights from seed 0):
+it serves requests through `repro_torch.serve.ServeEngine` and trains for a
+few steps through `repro_torch.train.Trainer` (2 x 4096 tokens a step,
+block remat, the config's optimizer), with granite-3-2b (dense GQA, all 40
+layers; phases ``serve``, ``train``), zamba2-7b (Mamba2 hybrid with a
+shared attention block; all 81 layers served, 39 trained: ``serve_zamba2``,
+``train_zamba2``) and dbrx-132b (MoE, 16 experts top-4; 8 layers served, 3
+trained: ``serve_dbrx``, ``train_dbrx``).  ``relocate_train`` moves a
+granite training job through a checkpoint: stopped after a save, resumed by
+a fresh `Trainer`, it must restore every leaf bit for bit and repeat the
+stopped job's next loss bit for bit.  It checks that each path really went
+through its kernels (launch counts equal to their per-step formulas), that
+the kernels' path agrees with the plain path for serving and for training,
 and that a live slot (KV caches, and a hybrid's conv windows and SSM
-states) moved to another engine goes on decoding bit-identically, for
-cuts of both models.  Prints one JSON object a line; the last line is
-``{"ok": true, "device": {...}}``.  Exits non-zero, without that line,
-when there is no CUDA device or any phase fails: nothing is retried on
-the CPU.
+states) moved to another engine goes on decoding bit-identically, for cuts
+of the three models.  Prints one JSON object a line, and each phase's
+seconds as it ends; the last line is ``{"ok": true, "device": {...}}``.
+Exits non-zero, without that line, when there is no CUDA device or any
+phase fails: nothing is retried on the CPU.
 
 ``--only build,kernels,serve_zamba2`` runs some phases alone (then no final
 line); ``--verbose-build`` prints the compiler's messages.
@@ -29,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -38,9 +43,10 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-PHASES = ("build", "kernels", "serve", "train", "serve_zamba2", "train_zamba2", "timing",
-          "path_vs_plain", "train_vs_plain", "migrate", "path_vs_plain_zamba2",
-          "train_vs_plain_zamba2", "migrate_zamba2")
+PHASES = ("build", "kernels", "serve", "train", "serve_zamba2", "train_zamba2", "serve_dbrx",
+          "train_dbrx", "relocate_train", "timing", "path_vs_plain", "train_vs_plain", "migrate",
+          "path_vs_plain_zamba2", "train_vs_plain_zamba2", "migrate_zamba2",
+          "path_vs_plain_dbrx", "migrate_dbrx")
 
 # Published peaks of one H100 SXM (dense): device memory and arithmetic.
 HBM_BYTES_PER_S = 3.35e12
@@ -80,6 +86,23 @@ GRAD_TOL = dict(atol=1e-4, rtol=1e-4)    # fp32 gradients, summed in another ord
 # fill the card); steps; depth of the kernel-vs-plain and migration cuts (1
 # period and the 3 tail layers, so that tail and tail_shared are on them).
 ZAMBA_REQUESTS, ZAMBA_TRAIN_LAYERS, ZAMBA_TRAIN_STEPS, ZAMBA_CUT_LAYERS = 16, 39, 3, 9
+# dbrx-132b (6.5 GB of bf16 weights a layer): depth served (8 layers beside
+# 8 slots' caches), requests; depth trained (3: weights, the layers'
+# gradients and their stack at the end of the backward, 6.3 GB a layer
+# each, fill the card at 4), steps; depth of the kernel-vs-plain and
+# migration cut.
+DBRX_SERVE_LAYERS, DBRX_REQUESTS, DBRX_TRAIN_LAYERS, DBRX_TRAIN_STEPS, DBRX_CUT_LAYERS = \
+    8, 16, 3, 3, 2
+# relocate_train: granite-3-2b layers of the moved job, its steps, the
+# checkpoint interval, and the step after which it is stopped.  The state
+# is 0.61 GB a layer (bf16 weights, fp32 AdamW m and v) and 1.0 GB for the
+# embedding; the H100 machine has no zstandard, and zlib there compressed
+# 17.0 MB/s on one core (the 4-layer cut's 3.44 GB: 208 s a save, two saves
+# a run; NVIDIA H100 80GB HBM3), so 2 layers (2.22 GB) fit the run's time.
+RELOCATE_LAYERS, RELOCATE_STEPS, RELOCATE_EVERY, RELOCATE_STOP = 2, 6, 3, 4
+# The fleet simulator's host phase of a move (repro.fleet.elastic_bridge.
+# SimulatedElasticBackend): bytes at 16 Gbit/s plus 0.01 s a shard file.
+SIM_HOST_GBPS, SIM_PER_SHARD_S = 16.0, 0.01
 
 
 def emit(**obj):
@@ -230,12 +253,12 @@ def launches_per_step(cfg, train):
     models here have one kind of layer) with their shared blocks, but not
     the tail layers, the shared blocks before them, nor the final norm."""
     kinds = cfg.layer_pattern()
-    every = cfg.shared_attn_every
+    every = cfg.shared_attn_every            # an MoE layer attends as a dense one does
     shared = [i for i in range(len(kinds)) if every and i % every == 0]
 
     def count(kinds, shared, final_norm):
         return {"rms_norm": 2 * (len(kinds) + len(shared)) + final_norm,
-                "attn": sum(k == "attn" for k in kinds) + len(shared),
+                "attn": sum(k in ("attn", "moe") for k in kinds) + len(shared),
                 "ssm_scan": sum(k == "mamba2" for k in kinds)}
 
     fwd = count(kinds, shared, 1)
@@ -250,15 +273,21 @@ def launches_per_step(cfg, train):
 
 
 # Each main path's launches a step, fixed by hand: granite-3-2b has 40
-# attention layers; zamba2-7b 81 Mamba2 layers with the shared block before
-# layers 0, 6, ..., 78 (14 times), and 39 layers (6 periods of 6 and 3 tail
-# layers, 7 shared blocks) when trained.  `launches_per_step` must give these.
+# attention layers (2 in relocate_train); zamba2-7b 81 Mamba2 layers with the
+# shared block before layers 0, 6, ..., 78 (14 times), and 39 layers (6
+# periods of 6 and 3 tail layers, 7 shared blocks) when trained; dbrx-132b 8
+# attention + MoE layers served and 3 trained.  `launches_per_step` must
+# give these.
 MAIN_PATH_COUNTS = {
     "serve": dict(rms_norm=81, decode_attention=40, flash_attention=0, ssm_scan=0),
     "train": dict(rms_norm=81 + 80, decode_attention=0, flash_attention=40 + 40, ssm_scan=0),
     "serve_zamba2": dict(rms_norm=191, decode_attention=14, flash_attention=0, ssm_scan=0),
     "train_zamba2": dict(rms_norm=93 + 84, decode_attention=0, flash_attention=7 + 6,
                          ssm_scan=39 + 36),
+    "serve_dbrx": dict(rms_norm=17, decode_attention=8, flash_attention=0, ssm_scan=0),
+    "train_dbrx": dict(rms_norm=7 + 6, decode_attention=0, flash_attention=3 + 3, ssm_scan=0),
+    "relocate_train": dict(rms_norm=5 + 4, decode_attention=0, flash_attention=2 + 2,
+                           ssm_scan=0),
 }
 
 
@@ -317,7 +346,8 @@ RMS_CASES = [((8, 1, 2048), "bfloat16"), ((300, 512), "float32"),
              ((2, 37, 256), "bfloat16"), ((1, 5, 7, 64), "float32"),
              ((4096, 2048), "bfloat16"), ((16, 8192), "bfloat16"),
              ((8, 1, 3584), "bfloat16"), ((8192, 3584), "bfloat16"),   # zamba2's d_model
-             ((8, 1, 7168), "bfloat16"), ((8192, 7168), "bfloat16")]   # zamba2's gated norm
+             ((8, 1, 7168), "bfloat16"), ((8192, 7168), "bfloat16"),   # zamba2's gated norm
+             ((8, 1, 6144), "bfloat16"), ((8192, 6144), "bfloat16")]   # dbrx's d_model
 
 # (name, B, Sk, Hq, Hkv, D, dtype); kv_len is ragged, see ragged_lens
 DECODE_CASES = [
@@ -331,6 +361,7 @@ DECODE_CASES = [
     ("zamba2-7b", 8, 4096, 32, 32, 112, "bfloat16"),
     ("zamba2-7b-fp32", 8, 4096, 32, 32, 112, "float32"),
     ("group4-d112", 2, 777, 16, 4, 112, "bfloat16"),
+    ("dbrx-132b", 8, 4096, 48, 8, 128, "bfloat16"),      # G 6 on the GMAX-8 instance
 ]
 
 
@@ -359,6 +390,7 @@ FLASH_BF16_CASES = [
 ]
 FLASH_TRAIN = ("granite-3-2b train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 8, 64)
 FLASH_ZAMBA = ("zamba2-7b train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 32, 112)
+FLASH_DBRX = ("dbrx-132b train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 48, 8, 128)
 
 # (B, S, H, P, N, chunk): the cases of tests/test_kernels.py::TestSsmScan, and
 # zamba2-7b's training shape (d_inner 7168 = 112 heads of 64, state 64).
@@ -620,8 +652,11 @@ def phase_kernels(torch, device):
     torch.cuda.empty_cache()
     check_flash(torch, checks, FLASH_ZAMBA, True, "bfloat16", control=True)
     torch.cuda.empty_cache()
+    check_flash(torch, checks, FLASH_DBRX, True, "bfloat16", control=True)
+    torch.cuda.empty_cache()
     check_flash_grad(torch, checks)
     check_flash_grad(torch, checks, Hq=4, Hkv=4, D=112)
+    check_flash_grad(torch, checks, Hq=6, Hkv=1, D=128)      # dbrx's G 6 at d_head 128
 
     for case in SSM_CASES:
         for dt in ("float32", "bfloat16"):
@@ -1035,7 +1070,10 @@ def phase_timing(torch, device, launches, resources):
                             if counts.get(name)}
 
     def norm_times(x, scale):
-        """ms = device time a launch; call_ms = a call in a tight host loop."""
+        """ms = device time a launch; call_ms = a call in a tight host loop.
+        The kernel's result is held against the plain version first."""
+        err, ratio = errors(torch, rms_norm(x, scale, 1e-5), rms_norm_plain(x, scale, 1e-5), dt)
+        require(ratio <= 1.0, f"timing: rms_norm {list(x.shape)} error {err} beyond tolerance")
         ms, call = timer(lambda: rms_norm(x, scale, 1e-5), iters=200)
         plain, plain_call = timer(lambda: rms_norm_plain(x, scale, 1e-5), iters=200)
         lib, lib_call = (timer(lambda: F.rms_norm(x, x.shape[-1:], scale, 1e-5), iters=200)
@@ -1043,20 +1081,18 @@ def phase_timing(torch, device, launches, resources):
         ms2, call2 = timer(lambda: rms_norm(x, scale, 1e-5), iters=200)
         nbytes = 2 * x.numel() * 2 + scale.numel() * 2
         b_ms, b_by = bound(nbytes, 4 * x.numel(), "float32")   # fp32 math, no tensor cores
-        return dict(ms=min(ms, ms2), plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+        return dict(max_abs_err=err, ms=min(ms, ms2), plain_ms=plain, bound_ms=b_ms,
+                    bound_by=b_by,
                     library_ms=lib, call_ms=min(call, call2), plain_call_ms=plain_call,
                     library_call_ms=lib_call, shape=list(x.shape), bytes=nbytes)
 
     # rms_norm: the decode step's (slots, 1, d_model).
     x = rand(torch, (SERVE_SLOTS, 1, 2048), dtype, 1, device)
     scale = rand(torch, (2048,), dtype, 2, device)
-    got = rms_norm(x, scale, 1e-5)
-    err, ratio = errors(torch, got, rms_norm_plain(x, scale, 1e-5), dt)
-    require(ratio <= 1.0, f"timing: rms_norm error {err} beyond tolerance")
     counts = by_path("rms_norm")
     out.append(dict(name="rms_norm", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
                     replaces="src/repro/kernels/rmsnorm.py:24", launches=sum(counts.values()),
-                    launches_by_path=counts, max_abs_err=err, tol=TOL[dt],
+                    launches_by_path=counts, tol=TOL[dt],
                     **norm_times(x, scale), library="torch.nn.functional.rms_norm", dtype=dt))
     # The same kernel where bytes, not the launch, set the time; and zamba2's
     # gated norm over d_inner 7168 at the training shape.
@@ -1064,6 +1100,11 @@ def phase_timing(torch, device, launches, resources):
     out[-1]["zamba2_gated_train"] = norm_times(
         rand(torch, (TRAIN_BATCH, TRAIN_SEQ, 7168), dtype, 4, device),
         rand(torch, (7168,), dtype, 5, device))
+    dbrx_scale = rand(torch, (6144,), dtype, 7, device)
+    out[-1]["dbrx_decode"] = norm_times(rand(torch, (SERVE_SLOTS, 1, 6144), dtype, 6, device),
+                                        dbrx_scale)
+    out[-1]["dbrx_train"] = norm_times(rand(torch, (TRAIN_BATCH, TRAIN_SEQ, 6144), dtype, 8,
+                                            device), dbrx_scale)
 
     counts = by_path("decode_attention")
     out.append(dict(name="decode_attention", route="cuda",
@@ -1073,7 +1114,10 @@ def phase_timing(torch, device, launches, resources):
                     library="torch.nn.functional.scaled_dot_product_attention(enable_gqa)",
                     **decode_times(torch, timer, device, (SERVE_SLOTS, SERVE_MAX_LEN, 32, 8, 64)),
                     zamba2_d112=decode_times(torch, timer, device,
-                                             (SERVE_SLOTS, SERVE_MAX_LEN, 32, 32, 112))))
+                                             (SERVE_SLOTS, SERVE_MAX_LEN, 32, 32, 112)),
+                    dbrx_g6_d128=dict(
+                        decode_times(torch, timer, device, (SERVE_SLOTS, SERVE_MAX_LEN, 48, 8, 128)),
+                        **decode_instance(resources, 128, 8))))
     torch.cuda.empty_cache()
 
     counts = by_path("flash_attention")
@@ -1084,7 +1128,8 @@ def phase_timing(torch, device, launches, resources):
                     library="torch.nn.functional.scaled_dot_product_attention"
                             "(is_causal, enable_gqa)",
                     **flash_times(torch, timer, device, FLASH_TRAIN, resources),
-                    zamba2_d112=flash_times(torch, timer, device, FLASH_ZAMBA, resources)))
+                    zamba2_d112=flash_times(torch, timer, device, FLASH_ZAMBA, resources),
+                    dbrx_d128=flash_times(torch, timer, device, FLASH_DBRX, resources)))
     torch.cuda.empty_cache()
 
     counts = by_path("ssm_scan")
@@ -1148,6 +1193,16 @@ def decode_times(torch, timer, device, shape):
                                   device=device))
     return dict(full, shape=list(shape), dtype=dt, kv_len="every slot full",
                 at_served_lengths=served)
+
+
+def decode_instance(resources, D, gmax):
+    """The build's registers and spill bytes of the bf16 `decode_partial_kernel`
+    instance for ``D`` and ``gmax`` grouped q-heads (its `launch_g` rounds a
+    group up to 1, 2, 4 or 8)."""
+    names = [k for k in resources if k.startswith("decode_partial_kernel<")
+             and "bfloat16" in k and k.replace(" ", "").endswith(f",{D},{gmax},false>")]
+    return dict(instance=names[0] if names else f"decode_partial_kernel<bf16, {D}, {gmax}>",
+                **(resources[names[0]] if names else {}))
 
 
 def instance(resources, name):
@@ -1378,6 +1433,335 @@ def phase_migrate(torch, device, cfg4, params4, phase="migrate"):
          slot_state_bit_equal=True, leaves_compared=len(got))
 
 
+# ------------------------------------------------------------- relocation --
+class _Stop(Exception):
+    pass
+
+
+def _rates(stats, payload):
+    """Each stage's seconds and GB/s (the payload's bytes, or the file's for
+    reading and writing, over the stage's seconds)."""
+    out = {}
+    for key, value in stats.items():
+        if key.endswith("bytes") or key == "seconds":
+            continue
+        nbytes = stats.get("file_bytes", payload) if key in ("read", "write") else payload
+        out[key] = dict(seconds=value, gb_per_s=nbytes / value / 1e9 if value else None)
+    return out
+
+
+def phase_relocate_train(torch, device, cfg, phase="relocate_train"):
+    """A training job moved through a checkpoint.  An uninterrupted run
+    gives the losses to follow.  The job saves after step RELOCATE_EVERY
+    (its host snapshot is kept here) and is stopped after step
+    RELOCATE_STOP; it is dropped and the card's cache emptied.  A fresh
+    `Trainer` on the same directory resumes: (a) every restored leaf equals
+    the snapshot, the int32 step counters included; (b) its first step's
+    loss equals the stopped job's loss of that step (same state, same
+    batch) bit for bit; (c) its later losses equal the uninterrupted run's
+    bit for bit where the job's own steps did (the step is then
+    deterministic), else lie within that spread.  Control: the checkpoint
+    of another step (the resumed job's final one) must fail (b)."""
+    import shutil
+    from repro_torch._tree import tree_items
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.train import TrainerConfig, make_synthetic_trainer
+
+    root = Path(__file__).resolve().parent / "build" / phase
+    shutil.rmtree(root, ignore_errors=True)
+    base = dict(steps=RELOCATE_STEPS, log_every=10 ** 9, loss_chunk=TRAIN_LOSS_CHUNK)
+    jobcfg = TrainerConfig(ckpt_every=RELOCATE_EVERY, ckpt_dir=str(root), **base)
+    make = lambda tcfg, **kw: make_synthetic_trainer(cfg, tcfg, TRAIN_BATCH, TRAIN_SEQ,
+                                                     device=device, **kw)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def stop(tr, step, state, rec):
+        if step == RELOCATE_STOP:
+            raise _Stop
+
+    try:
+        straight = make(TrainerConfig(**base))
+        straight.run()
+        want = [r["loss"] for r in straight.metrics_log]
+        del straight
+        free()
+
+        job = make(jobcfg, step_hooks=[stop])
+        kept = {}
+        snapshot = job.ckpt.snapshot
+        job.ckpt.snapshot = lambda tree: kept.setdefault("tree", snapshot(tree))
+        stopped = False
+        try:
+            job.run()
+        except _Stop:
+            stopped = True
+        job.ckpt.wait()
+        require(stopped, f"{phase}: the job was not stopped")
+        ran = [r["loss"] for r in job.metrics_log]
+        pause_s, save = job.ckpt.last_snapshot_s, job.ckpt.last_save
+        path = ck.latest_checkpoint(str(root))
+        require(path is not None and path.endswith(f"step_{RELOCATE_EVERY:08d}"),
+                f"{phase}: the job's checkpoint is {path}")
+        payload, shards = ck.checkpoint_nbytes(path)
+        files = sorted(Path(path).iterdir())
+        disk = sum(f.stat().st_size for f in files)
+        codec = json.loads((Path(path) / "manifest.json").read_text())["codec"]
+        del job
+        free()
+
+        moved = make(jobcfg)
+        t0 = time.perf_counter()
+        state, start = moved.init_or_restore()
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        restore = moved.ckpt.last_restore
+        require(start == RELOCATE_EVERY + 1, f"{phase}: resumed at step {start}")
+        mine, theirs = list(tree_items(state)), list(tree_items(kept.pop("tree")))
+        require([p for p, _ in mine] == [p for p, _ in theirs], f"{phase}: leaf paths differ")
+        for (p, a), (_, b) in zip(mine, theirs):
+            require(a.device.type == "cuda" and a.dtype == b.dtype
+                    and torch.equal(a.cpu(), b), f"{phase}: (a) leaf {p} differs")
+        counters = [p for p, t in mine if t.dtype == torch.int32]
+        del theirs
+        zero_counts()
+        moved.run(state=state, start_step=start)
+        torch.cuda.synchronize()
+        launches = read_counts()
+        after = {r["step"]: r["loss"] for r in moved.metrics_log}
+        final_save = moved.ckpt.last_save
+        del moved, state
+        free()
+        check_counts(phase, launches, launches_per_step(cfg, train=True),
+                     RELOCATE_STEPS - start)
+
+        # (b): the first resumed step against the stopped job's same step.
+        first = RELOCATE_EVERY + 1
+        require(after[first] == ran[first],
+                f"{phase}: (b) step {first} loss {after[first]!r} != {ran[first]!r}")
+        # (c): later steps against the uninterrupted run.
+        spread = max(abs(a - b) for a, b in zip(ran, want))
+        deterministic = spread == 0.0
+        later = {s: abs(after[s] - want[s]) for s in after if s > first}
+        require(all(d <= spread for d in later.values()),
+                f"{phase}: (c) later losses {later} beyond the spread {spread}")
+
+        # Control: the resumed job's final checkpoint (after step
+        # RELOCATE_STEPS - 1) restored, and step `first`'s batch run from it.
+        ctl = make(jobcfg)
+        cstate, cstart = ctl.init_or_restore()
+        batch = {k: torch.as_tensor(v).to(device) for k, v in ctl.data.batch_at(first).items()}
+        _, metrics = ctl._step(cstate, batch)
+        control_loss = float(metrics["loss"])
+        control_restore = ctl.ckpt.last_restore
+        del ctl, cstate, batch, metrics
+        free()
+        require(cstart == RELOCATE_STEPS and control_loss != ran[first],
+                f"{phase}: the control (checkpoint of step {cstart}) passed (b)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    sim_s = payload * 8.0 / 1e9 / SIM_HOST_GBPS + shards * SIM_PER_SHARD_S
+    emit(phase=phase, model=cfg.name, layers=cfg.n_layers, optimizer=cfg.optimizer,
+         batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, steps=RELOCATE_STEPS,
+         checkpoint_step=RELOCATE_EVERY, stopped_after_step=RELOCATE_STOP,
+         resumed_at_step=first, codec=codec, payload_bytes=payload, shard_files=shards,
+         disk_bytes=disk, files=len(files), leaves=len(mine), int32_counters=counters,
+         pause_seconds=pause_s, pause_gb_per_s=payload / pause_s / 1e9,
+         save_seconds=save["seconds"], save_gb_per_s=payload / save["seconds"] / 1e9,
+         save_stages=_rates(save, payload),
+         restore_seconds=restore_s, restore_gb_per_s=payload / restore_s / 1e9,
+         restore_stages=_rates(restore, payload),
+         final_save_seconds=final_save["seconds"],
+         control_restore_seconds=control_restore["seconds"],
+         simulator=dict(host_gbps=SIM_HOST_GBPS, per_shard_s=SIM_PER_SHARD_S,
+                        host_phase_seconds=sim_s,
+                        save_over_simulated=save["seconds"] / sim_s,
+                        restore_over_simulated=restore_s / sim_s),
+         uninterrupted_losses=want, stopped_job_losses=ran, resumed_losses=after,
+         a_leaves_bit_equal=True, b_first_loss_bit_equal=True,
+         c_deterministic=deterministic, c_spread=spread, c_later_abs_diff=later,
+         control=dict(checkpoint_step=cstart, loss=control_loss, fails_b=True),
+         launches=launches)
+    return launches
+
+
+# -------------------------------------------------------------------- MoE --
+def record_routes():
+    """Wrap the MoE router so that each call's top-k expert ids are kept;
+    returns (the list they go to, a function that unwraps)."""
+    from repro_torch.models import moe
+    inner, seen = moe.router_probs, []
+
+    def router_probs(params, x_flat, cfg):
+        out = inner(params, x_flat, cfg)
+        seen.append(out[3].clone())
+        return out
+
+    moe.router_probs = router_probs
+    return seen, lambda: setattr(moe, "router_probs", inner)
+
+
+def phase_path_vs_plain_moe(torch, device, cfg, params, phase):
+    """16 decode steps of an MoE cut's engine (8 slots); at each, the step is
+    run from the same cache on the kernels, under `use_plain()`, and under
+    `use_plain()` with the newest key of every decode attention dropped (the
+    control), before the engine steps on.  At every step the two paths
+    must choose the same experts (every layer's top-k ids equal); the
+    kernels' logits are held to the plain ones elementwise (bf16 `TOL`) and
+    their greedy tokens where decisive.  The control must fail the
+    elementwise check."""
+    from repro_torch._tree import tree_map
+    from repro_torch.kernels import decode_attention as _decode
+    from repro_torch.kernels import ops
+    from repro_torch.serve import ServeEngine
+
+    n_steps = 16
+    engine = ServeEngine(cfg, params, batch_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                         eos_id=-1, device=device)
+    for r in draw_requests(SERVE_SLOTS, cfg.vocab_size, seed=1):
+        engine.submit(r)
+    for _ in range(4):
+        engine.step()
+    plain_fn = _decode.decode_attention_plain
+
+    def dropped_newest(q, k, v, kv_len):
+        return plain_fn(q, k, v, (torch.as_tensor(kv_len, device=q.device) - 1).clamp(min=1))
+
+    routes, unwrap = record_routes()
+    used = {name: 0 for name in kernel_wrappers()}
+    worst = control_worst = 0.0
+    tokens_equal, decisive_n, positions = 0, 0, 0
+    try:
+        for step in range(n_steps):
+            tokens = torch.from_numpy(engine._slot_tokens()).to(device)
+
+            def run():
+                routes.clear()
+                cache = tree_map(lambda t: t.clone(), engine.cache)
+                _, logits = engine._decode(params, cache, tokens)
+                return logits[:, 0].float(), list(routes)
+
+            zero_counts()
+            kern, kern_routes = run()
+            torch.cuda.synchronize()
+            for name, n in read_counts().items():
+                used[name] += n
+            with ops.use_plain():
+                plain, plain_routes = run()
+                _decode.decode_attention_plain = dropped_newest
+                try:
+                    control, _ = run()
+                finally:
+                    _decode.decode_attention_plain = plain_fn
+            rerouted = [layer for layer, (a, b) in enumerate(zip(kern_routes, plain_routes))
+                        if not torch.equal(a, b)]
+            require(len(kern_routes) == len(plain_routes) == cfg.n_layers and not rerouted,
+                    f"{phase}: step {step} routed differently on the two paths "
+                    f"(layers {rerouted})")
+            worst = max(worst, errors(torch, kern, plain, "bfloat16")[1])
+            control_worst = max(control_worst, errors(torch, control, plain, "bfloat16")[1])
+            top2 = plain.topk(2, dim=-1).values
+            decisive = (top2[:, 0] - top2[:, 1]) > 2 * (0.05 + 0.05 * top2[:, 0].abs())
+            same = kern.argmax(-1) == plain.argmax(-1)
+            require(bool((same | ~decisive).all()), f"{phase}: greedy tokens differ")
+            tokens_equal += int(same.sum())
+            decisive_n += int(decisive.sum())
+            positions += int(same.numel())
+            engine.step()
+    finally:
+        unwrap()
+    check_counts(phase, used, launches_per_step(cfg, train=False), n_steps)
+    emit(phase=phase, model=cfg.name, layers=cfg.n_layers, steps=n_steps, err_over_tol=worst,
+         tol=TOL["bfloat16"], control_newest_key_dropped=dict(err_over_tol=control_worst,
+                                                                fails=control_worst > 1.0),
+         decisive_positions=decisive_n, positions=positions, tokens_equal=tokens_equal,
+         launches=used)
+    require(worst <= 1.0, f"{phase}: logits differ by {worst} of the allowance")
+    require(control_worst > 1.0, f"{phase}: the control with a key dropped passed")
+    del engine
+
+
+def phase_migrate_moe(torch, device, cfg, params, phase):
+    """An MoE engine's two slots moved together: run two requests to the end
+    on one engine; run twins to 4 generated tokens on a second, export both
+    slots, import each into the same slot of a third, finish there: same
+    tokens, same slot states, bit for bit (the neighbours, whose tokens
+    share the experts' capacity in a decode step, are the same).  Then the
+    first request's slot alone into another slot beside another request:
+    there capacity drops may differ, and the first token where its
+    continuation leaves the reference's is printed, not held."""
+    from repro_torch.serve import Request, ServeEngine
+
+    mk = lambda: ServeEngine(cfg, params, batch_slots=2, max_len=SERVE_MAX_LEN, eos_id=-1,
+                             temperature=0.7, rng_seed=3, device=device)
+    prompts = [list(range(7, 31)), list(range(40, 57))]
+    reqs = lambda: [Request(5 + i, prompt=list(p), max_new_tokens=16)
+                    for i, p in enumerate(prompts)]
+    ref_eng, ref = mk(), reqs()
+    for r in ref:
+        ref_eng.submit(r)
+    ref_eng.run_until_done(500)
+
+    src, moved = mk(), reqs()
+    for r in moved:
+        src.submit(r)
+    while len(moved[0].output) < 4:
+        src.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    states = [src.export_slot(slot) for slot in (0, 1)]
+    torch.cuda.synchronize()
+    export_s = time.perf_counter() - t0
+    outputs = [list(r.output) for r in moved]
+    frozen = [[t.clone() for _, t in _payload(st)] for st in states]
+    src.step()                                    # the source moves on
+    require(all(torch.equal(a, b) for fr, st in zip(frozen, states)
+                for a, (_, b) in zip(fr, _payload(st))),
+            f"{phase}: an exported payload changed when the source stepped on")
+    for r, out in zip(moved, outputs):
+        r.output, r.done = list(out), False
+
+    dst = mk()
+    t0 = time.perf_counter()
+    for slot, st in enumerate(states):
+        dst.import_slot(slot, st)
+        dst.slots[slot] = moved[slot]
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    dst.run_until_done(500)
+    for slot, (got, want) in enumerate(zip(moved, ref)):
+        require(got.done and got.output == want.output,
+                f"{phase}: slot {slot} outputs differ: {got.output} vs {want.output}")
+        a, b = dst.export_slot(slot), ref_eng.export_slot(slot)
+        require(a["offset"] == b["offset"], f"{phase}: offsets differ")
+        for (path, x), (_, y) in zip(_payload(a), _payload(b)):
+            require(torch.equal(x, y), f"{phase}: slot {slot} states differ at {path}")
+
+    other = mk()
+    lone = Request(5, prompt=list(prompts[0]), max_new_tokens=16)
+    lone.output = list(outputs[0])
+    other.import_slot(1, states[0])
+    other.slots[1] = lone
+    other.submit(Request(9, prompt=list(range(60, 80)), max_new_tokens=16))
+    other.run_until_done(500)
+    diverged = next((i for i, (a, b) in enumerate(zip(lone.output, ref[0].output)) if a != b),
+                    None)
+    emit(phase=phase, model=cfg.name, layers=cfg.n_layers, tokens=[r.output for r in ref],
+         payload_bytes=sum(t.numel() * t.element_size() for st in states
+                           for _, t in _payload(st)),
+         export_seconds=export_s, import_seconds=import_s, outputs_equal=True,
+         slot_states_bit_equal=True, capacity_per_expert_at_two_slots=_capacity(cfg, 2),
+         other_neighbour=dict(tokens=lone.output, first_divergent_token=diverged))
+
+
+def _capacity(cfg, n_tokens):
+    from repro_torch.models.moe import capacity
+    return capacity(n_tokens, cfg)
+
+
 # ------------------------------------------------------------------ main --
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1401,11 +1785,27 @@ def main(argv=None):
     device = torch.device("cuda", 0)
     smi_line = phase_device(torch)
     granite, zamba = get_config("granite-3-2b"), get_config("zamba2-7b")
+    dbrx = get_config("dbrx-132b")
+    cut = lambda cfg, n: dataclasses.replace(cfg, n_layers=n)
     # Each path's launches, read just after it ran with every count at 0.
     paths = {"serve": (granite, False), "train": (granite, True),
              "serve_zamba2": (zamba, False),
-             "train_zamba2": (dataclasses.replace(zamba, n_layers=ZAMBA_TRAIN_LAYERS), True)}
+             "train_zamba2": (cut(zamba, ZAMBA_TRAIN_LAYERS), True),
+             "serve_dbrx": (cut(dbrx, DBRX_SERVE_LAYERS), False),
+             "train_dbrx": (cut(dbrx, DBRX_TRAIN_LAYERS), True),
+             "relocate_train": (cut(granite, RELOCATE_LAYERS), True)}
     launches = {path: {} for path in paths}
+    seconds = {}
+
+    def timed(name, fn, *a, **kw):
+        """Runs one phase and prints its seconds as it ends."""
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        seconds[name] = time.perf_counter() - t0
+        emit(phase_seconds=name, seconds=seconds[name],
+             since_start=time.perf_counter() - t_start)
+        return out
+
     try:
         for path, (cfg, train) in paths.items():
             require(launches_per_step(cfg, train) == MAIN_PATH_COUNTS[path],
@@ -1413,51 +1813,70 @@ def main(argv=None):
                     f"expected {MAIN_PATH_COUNTS[path]}")
         resources = {}
         if run("build"):
-            resources = phase_build(args.verbose_build)
+            resources = timed("build", phase_build, args.verbose_build)
         if run("kernels"):
-            phase_kernels(torch, device)
+            timed("kernels", phase_kernels, torch, device)
         if run("serve"):
-            launches["serve"] = phase_serve(torch, device, granite, 24)
+            launches["serve"] = timed("serve", phase_serve, torch, device, granite, 24)
         if run("train"):
-            launches["train"] = phase_train(torch, device, granite, TRAIN_STEPS)
+            launches["train"] = timed("train", phase_train, torch, device, granite, TRAIN_STEPS)
         if run("serve_zamba2"):
-            launches["serve_zamba2"] = phase_serve(torch, device, zamba, ZAMBA_REQUESTS,
-                                                   "serve_zamba2")
+            launches["serve_zamba2"] = timed("serve_zamba2", phase_serve, torch, device, zamba,
+                                             ZAMBA_REQUESTS, "serve_zamba2")
         if run("train_zamba2"):
-            launches["train_zamba2"] = phase_train(torch, device, paths["train_zamba2"][0],
-                                                   ZAMBA_TRAIN_STEPS, "train_zamba2")
+            launches["train_zamba2"] = timed("train_zamba2", phase_train, torch, device,
+                                             paths["train_zamba2"][0], ZAMBA_TRAIN_STEPS,
+                                             "train_zamba2")
+        if run("serve_dbrx"):
+            launches["serve_dbrx"] = timed("serve_dbrx", phase_serve, torch, device,
+                                           paths["serve_dbrx"][0], DBRX_REQUESTS, "serve_dbrx")
+        if run("train_dbrx"):
+            launches["train_dbrx"] = timed("train_dbrx", phase_train, torch, device,
+                                           paths["train_dbrx"][0], DBRX_TRAIN_STEPS,
+                                           "train_dbrx")
+        if run("relocate_train"):
+            launches["relocate_train"] = timed("relocate_train", phase_relocate_train, torch,
+                                               device, paths["relocate_train"][0])
         if run("timing"):
-            kernels = phase_timing(torch, device, launches, resources)
+            kernels = timed("timing", phase_timing, torch, device, launches, resources)
             emit(phase="timing", kernels=kernels)
             if not only:
                 for path, (cfg, train) in paths.items():
                     for name, n in launches_per_step(cfg, train).items():
                         require(n == 0 or launches[path][name] > 0,
                                 f"{name} was not launched by the {path} path")
-        cuts = [("", dataclasses.replace(granite, n_layers=4)),
-                ("_zamba2", dataclasses.replace(zamba, n_layers=ZAMBA_CUT_LAYERS))]
-        for suffix, cut in cuts:
-            recurrent = carries_state(cut)
+        cuts = [("", cut(granite, 4)), ("_zamba2", cut(zamba, ZAMBA_CUT_LAYERS)),
+                ("_dbrx", cut(dbrx, DBRX_CUT_LAYERS))]
+        for suffix, cfg in cuts:
+            recurrent, moe = carries_state(cfg), "moe" in cfg.layer_pattern()
             if run("path_vs_plain" + suffix) or run("migrate" + suffix):
-                params = build_model(torch, cut, device)
+                params = build_model(torch, cfg, device)
                 if run("path_vs_plain" + suffix):
-                    phase_path_vs_plain(torch, device, cut, params, "path_vs_plain" + suffix,
-                                        elementwise=not recurrent)
+                    if moe:
+                        timed("path_vs_plain" + suffix, phase_path_vs_plain_moe, torch, device,
+                              cfg, params, "path_vs_plain" + suffix)
+                    else:
+                        timed("path_vs_plain" + suffix, phase_path_vs_plain, torch, device,
+                              cfg, params, "path_vs_plain" + suffix, elementwise=not recurrent)
                 if run("migrate" + suffix):
-                    phase_migrate(torch, device, cut, params, "migrate" + suffix)
+                    timed("migrate" + suffix, phase_migrate_moe if moe else phase_migrate,
+                          torch, device, cfg, params, "migrate" + suffix)
                 del params
                 torch.cuda.empty_cache()
-            if run("train_vs_plain" + suffix):
+            if not moe and run("train_vs_plain" + suffix):
                 if recurrent:
-                    phase_train_vs_fp32(torch, device, cut, "train_vs_fp32" + suffix)
-                    cut = dataclasses.replace(cut, compute_dtype="float32",
+                    timed("train_vs_fp32" + suffix, phase_train_vs_fp32, torch, device, cfg,
+                          "train_vs_fp32" + suffix)
+                    cfg = dataclasses.replace(cfg, compute_dtype="float32",
                                               param_dtype="float32")
-                phase_train_vs_plain(torch, device, cut, "train_vs_plain" + suffix)
+                timed("train_vs_plain" + suffix, phase_train_vs_plain, torch, device, cfg,
+                      "train_vs_plain" + suffix)
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     print(smi_line, flush=True)
-    emit(phase="done", seconds=time.perf_counter() - t_start, phases=only or list(PHASES))
+    emit(phase="done", seconds=time.perf_counter() - t_start, phases=only or list(PHASES),
+         phase_seconds=seconds)
     if run("timing"):
         emit(kernels=kernels)
     if only:

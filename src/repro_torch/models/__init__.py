@@ -1,4 +1,5 @@
-"""Model substrate of the torch port: the dense GQA decoder, for serving and training."""
+"""Model substrate of the torch port: the dense GQA, MoE and Mamba2 hybrid
+decoders, for serving and training."""
 
 from .config import (  # noqa: F401
     ALL_SHAPES,

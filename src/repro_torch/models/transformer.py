@@ -7,13 +7,14 @@ and caches of the period's layers carry a leading ``(n_full,)`` axis, as in
 axis with `jax.lax.scan`, `forward` runs a Python loop over it.
 
 Supported: stacks of attention + FFN blocks (the dense family: granite,
-qwen1.5, nemotron) and of Mamba2 mixers with zamba2's weight-shared
-attention block, applied at the start of each period of
+qwen1.5, nemotron), of attention + MoE-FFN blocks (dbrx, kimi-k2; their
+aux losses summed over the layers) and of Mamba2 mixers with zamba2's
+weight-shared attention block, applied at the start of each period of
 ``shared_attn_every`` layers and before each tail layer whose index is a
 multiple of it; its KV caches are per depth (``shared`` stacked over the
-periods, ``tail_shared`` a list).  MoE and xLSTM blocks, the encoder and
+periods, ``tail_shared`` a list).  xLSTM blocks, the encoder and
 cross-attention, vision prefixes and hoisted RoPE tables raise
-`NotImplementedError` (ROADMAP Queue 1 items 11-13).
+`NotImplementedError` (ROADMAP Queue 1 items 12-13).
 
 `forward` covers full-sequence and cached (prefill-into-cache, decode) runs
 via the optional cache, and runs under autograd when grad is enabled (the
@@ -33,9 +34,9 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .._tree import tree_map
+from .._tree import tree_map, tree_stack
 from .attention import attention, init_attention, init_kv_cache
-from .config import BLOCK_ATTN, BLOCK_MAMBA2, ModelConfig
+from .config import BLOCK_ATTN, BLOCK_MAMBA2, BLOCK_MOE, ModelConfig
 from .ffn import ffn, init_ffn
 from .layers import (
     apply_linear,
@@ -49,6 +50,7 @@ from .layers import (
     positions_for,
     unembed,
 )
+from .moe import init_moe, moe_ffn
 from .ssm import init_mamba2, init_ssm_cache, mamba2_block
 
 
@@ -85,7 +87,7 @@ def stack_layout(cfg: ModelConfig) -> StackLayout:
     return StackLayout(pattern, p, n_full, tail, bool(cfg.shared_attn_every))
 
 
-_PORTED_KINDS = {BLOCK_ATTN, BLOCK_MAMBA2}
+_PORTED_KINDS = {BLOCK_ATTN, BLOCK_MOE, BLOCK_MAMBA2}
 
 
 def _layout(cfg: ModelConfig) -> StackLayout:
@@ -98,45 +100,47 @@ def _layout(cfg: ModelConfig) -> StackLayout:
     other = sorted(set(layout.kinds) - _PORTED_KINDS)
     if other:
         raise NotImplementedError(
-            f"block kinds {other}: ROADMAP Queue 1 items 11-12")
+            f"block kinds {other}: ROADMAP Queue 1 item 12")
     return layout
 
 
 # ------------------------------------------------------------------ init --
-def _init_attn_block(generator, cfg: ModelConfig, dtype, device) -> Dict:
+def _init_attn_block(generator, cfg: ModelConfig, dtype, device, moe: bool = False) -> Dict:
+    """An attention block; its FFN is ``moe`` (router and stacked experts)
+    for the MoE kind, else ``ffn``."""
     d = cfg.d_model
-    return {
+    p = {
         "norm1": init_rmsnorm(d, dtype, device),
         "attn": init_attention(generator, cfg, dtype, device=device),
         "norm2": init_rmsnorm(d, dtype, device),
-        "ffn": init_ffn(generator, cfg, dtype, device=device),
     }
+    if moe:
+        p["moe"] = init_moe(generator, cfg, dtype, device=device)
+    else:
+        p["ffn"] = init_ffn(generator, cfg, dtype, device=device)
+    return p
 
 
 def init_block(generator, cfg: ModelConfig, kind: str, dtype, cross: bool = False,
                device=None) -> Dict:
     if kind not in _PORTED_KINDS or cross:
         raise NotImplementedError(f"block kind {kind!r} (cross={cross}): "
-                                  "ROADMAP Queue 1 items 11-13")
+                                  "ROADMAP Queue 1 items 12-13")
     device = generator.device if device is None else device
     if kind == BLOCK_MAMBA2:
         return {"norm1": init_rmsnorm(cfg.d_model, dtype, device),
                 "mixer": init_mamba2(generator, cfg, dtype, device=device)}
-    return _init_attn_block(generator, cfg, dtype, device)
+    return _init_attn_block(generator, cfg, dtype, device, moe=kind == BLOCK_MOE)
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      cross_len: int = 0, device="cuda") -> Dict:
     if kind not in _PORTED_KINDS or cross_len:
         raise NotImplementedError(f"cache for block kind {kind!r} "
-                                  f"(cross_len={cross_len}): ROADMAP Queue 1 items 11-13")
+                                  f"(cross_len={cross_len}): ROADMAP Queue 1 items 12-13")
     if kind == BLOCK_MAMBA2:
         return {"mixer": init_ssm_cache(cfg, batch, device)}
     return {"attn": init_kv_cache(cfg, batch, max_len, dtype_of(cfg.compute_dtype), device)}
-
-
-def _stack_trees(trees: List[Any]):
-    return tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
 def init_lm(generator: torch.Generator, cfg: ModelConfig, device=None) -> Dict:
@@ -150,9 +154,8 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig, device=None) -> Dict:
         "embed": init_embedding(generator, cfg.vocab_size, cfg.d_model, dtype, device)}
     blocks = {}
     for j, kind in enumerate(layout.period_kinds):
-        per = [init_block(generator, cfg, kind, dtype, device=device)
-               for _ in range(layout.n_full)]
-        blocks[f"pos{j}"] = _stack_trees(per)
+        blocks[f"pos{j}"] = tree_stack(
+            layout.n_full, lambda: init_block(generator, cfg, kind, dtype, device=device))
     params["blocks"] = blocks
     params["tail"] = [init_block(generator, cfg, kind, dtype, device=device)
                       for kind in layout.tail]
@@ -172,15 +175,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, cross_len: int = 0,
                       device=device)
     cache: Dict[str, Any] = {"blocks": {}, "tail": [], "index": idx}
     for j, kind in enumerate(layout.period_kinds):
-        per = [init_block_cache(cfg, kind, batch, max_len, cross_len, device)
-               for _ in range(layout.n_full)]
-        cache["blocks"][f"pos{j}"] = _stack_trees(per)
+        cache["blocks"][f"pos{j}"] = tree_stack(
+            layout.n_full, lambda: init_block_cache(cfg, kind, batch, max_len, cross_len, device))
     cache["tail"] = [init_block_cache(cfg, kind, batch, max_len, cross_len, device)
                      for kind in layout.tail]
     if layout.shared_attn:
-        shared = [init_block_cache(cfg, BLOCK_ATTN, batch, max_len, device=device)
-                  for _ in range(layout.n_full)]
-        cache["shared"] = _stack_trees(shared)
+        cache["shared"] = tree_stack(
+            layout.n_full, lambda: init_block_cache(cfg, BLOCK_ATTN, batch, max_len, device=device))
         cache["tail_shared"] = [init_block_cache(cfg, BLOCK_ATTN, batch, max_len, device=device)
                                 for _ in range(len(_tail_shared_at(cfg, layout)))]
     return cache
@@ -229,34 +230,49 @@ def _attn_block(bp, x, cfg, positions, cache, index, encoder_out, kind,
     x = x + a
     new_cache = None if cache is None else dict(cache, attn=attn_cache)
     h2 = _bar(fused_rms_norm(x, bp["norm2"]["scale"], cfg.norm_eps), cfg)
-    return x + ffn(bp["ffn"], h2, cfg), new_cache
+    if kind == BLOCK_MOE:
+        f, aux, _ = moe_ffn(bp["moe"], h2, cfg)
+        return x + f, new_cache, aux
+    return x + ffn(bp["ffn"], h2, cfg), new_cache, None
+
+
+def _add(total, aux):
+    """``total + aux``, where None stands for no aux loss (every kind but
+    MoE)."""
+    if aux is None:
+        return total
+    return aux if total is None else total + aux
 
 
 def apply_block(kind, bp, x, cfg, *, positions, cache, index):
-    """One layer: an attention + FFN block (zamba2's shared block too, with
-    its own per-depth KV cache), or a Mamba2 mixer block.  The cache, if
-    any, is updated in place."""
-    if kind == BLOCK_ATTN:
-        return _attn_block(bp, x, cfg, positions, cache, index, None, kind)[0]
+    """One layer: an attention + FFN or MoE-FFN block (zamba2's shared
+    block too, with its own per-depth KV cache), or a Mamba2 mixer block.
+    Returns (x, aux loss or None).  The cache, if any, is updated in
+    place."""
+    if kind in (BLOCK_ATTN, BLOCK_MOE):
+        x, _, aux = _attn_block(bp, x, cfg, positions, cache, index, None, kind)
+        return x, aux
     h = _bar(fused_rms_norm(x, bp["norm1"]["scale"], cfg.norm_eps), cfg)
     m, _ = mamba2_block(bp["mixer"], h, cfg, None if cache is None else cache["mixer"])
-    return x + m
+    return x + m, None
 
 
 def _period(x, bp, shared, cfg, kinds, positions, cslice, shared_cache, index):
     """One period of the stack (the reference's scanned ``period_fn``): the
     shared attention block first, when the stack has one, then the
-    period's layers."""
+    period's layers.  Returns (x, the layers' aux loss or None)."""
     if cfg.bf16_cotangent:
         x = bf16_cotangent_barrier(x)
     if shared is not None:
-        x = apply_block(BLOCK_ATTN, shared, x, cfg, positions=positions, cache=shared_cache,
-                        index=index)
+        x, _ = apply_block(BLOCK_ATTN, shared, x, cfg, positions=positions,
+                           cache=shared_cache, index=index)
+    aux = None
     for j, kind in enumerate(kinds):
         cj = None if cslice is None else cslice[f"pos{j}"]
-        x = apply_block(kind, bp[f"pos{j}"], x, cfg, positions=positions, cache=cj,
-                        index=index)
-    return x
+        x, a = apply_block(kind, bp[f"pos{j}"], x, cfg, positions=positions, cache=cj,
+                           index=index)
+        aux = _add(aux, a)
+    return x, aux
 
 
 def _unstack(tree, n: int) -> List[Any]:
@@ -317,6 +333,7 @@ def forward(
     index = cache["index"] if cache is not None else None
 
     remat = cfg.remat == "block" and torch.is_grad_enabled()
+    aux = None
     shared = params.get("shared_attn") if layout.shared_attn else None
     layers = _unstack(params["blocks"], layout.n_full)
     for i, bp in enumerate(layers):
@@ -326,23 +343,26 @@ def forward(
             if shared is not None:
                 sc = tree_map(lambda t: t[i], cache["shared"])
         args = (x, bp, shared, cfg, layout.period_kinds, positions, cslice, sc, index)
-        x = checkpoint(_period, *args, use_reentrant=False) if remat else _period(*args)
+        x, a = checkpoint(_period, *args, use_reentrant=False) if remat else _period(*args)
+        aux = _add(aux, a)
     shared_at = _tail_shared_at(cfg, layout)
     for t, kind in enumerate(layout.tail):
         if t in shared_at:
             sc = None if cache is None else cache["tail_shared"][shared_at.index(t)]
-            x = apply_block(BLOCK_ATTN, shared, x, cfg, positions=positions, cache=sc,
-                            index=index)
+            x, _ = apply_block(BLOCK_ATTN, shared, x, cfg, positions=positions, cache=sc,
+                               index=index)
         cj = None if cache is None else cache["tail"][t]
-        x = apply_block(kind, params["tail"][t], x, cfg, positions=positions, cache=cj,
-                        index=index)
+        x, a = apply_block(kind, params["tail"][t], x, cfg, positions=positions, cache=cj,
+                           index=index)
+        aux = _add(aux, a)
 
     x = _bar(x, cfg)
     x = fused_rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
     new_cache = None
     if cache is not None:
         new_cache = dict(cache, index=cache["index"] + S)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, new_cache, aux
 
 

@@ -187,7 +187,9 @@ class ServeEngine:
     # helpers are the engine-level half of the fleet's kv-ship migration
     # strategy -- export on the source engine, import into any free slot of
     # a destination engine built from the same config/params/rng_seed, and
-    # decoding continues bit-identically.
+    # decoding continues bit-identically.  In an MoE stack a decode step's
+    # slots share the experts' capacity, so there the continuation is
+    # bit-identical only beside the same neighbours in the same slots.
     def export_slot(self, slot: int) -> Dict:
         """Deep-copy one slot's KV / recurrent state + write offset (and
         the shared block's per-depth caches of a hybrid stack).  The tensors

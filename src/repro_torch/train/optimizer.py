@@ -12,8 +12,11 @@ that saves memory: ``update`` writes the new values into the ``params``
 tensors and the fp32 moment tensors of ``state`` and returns those same
 objects, and it works leaf by leaf, so that only one leaf's fp32
 temporaries live at a time (for granite-3-2b's stacked FFN weights, 2.7 GB
-each) instead of an fp32 copy of every gradient.  ``grads`` are not
-modified.
+each) instead of an fp32 copy of every gradient.  `adafactor` goes further
+and updates a large stacked leaf a run of its leading rows at a time (one
+layer's stacked expert weights of dbrx-132b are 4.2 GB in fp32), in two
+passes because its update clipping takes the RMS over the whole leaf.
+``grads`` are not modified.
 """
 
 from __future__ import annotations
@@ -47,10 +50,24 @@ def cosine_schedule(base_lr: float, warmup: int, total: int, min_frac: float = 0
     return lr
 
 
+# fp32 temporaries of a large leaf are made a run of this many elements at a
+# time (~256 MB each).
+_CHUNK_ELEMENTS = 1 << 26
+
+
+def _square_norm(x: torch.Tensor) -> torch.Tensor:
+    """Sum of squares of ``x`` in fp32.  `vector_norm` casts its input to
+    fp32 first, so a large leaf is taken a run of `_CHUNK_ELEMENTS` at a
+    time (a dbrx-132b stacked expert gradient would copy to 12.7 GB)."""
+    flat = x.reshape(-1)
+    norm = lambda t: torch.linalg.vector_norm(t, dtype=torch.float32).square()
+    return torch.stack([norm(flat[i:i + _CHUNK_ELEMENTS])
+                        for i in range(0, flat.numel(), _CHUNK_ELEMENTS)]).sum()
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in fp32."""
-    sq = [torch.linalg.vector_norm(x, dtype=torch.float32).square() for x in tree_leaves(tree)]
-    return torch.sqrt(torch.stack(sq).sum())
+    return torch.sqrt(torch.stack([_square_norm(x) for x in tree_leaves(tree)]).sum())
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -132,6 +149,22 @@ def _factored(shape) -> bool:
     return len(shape) >= 2 and shape[-1] >= _FACTOR_MIN and shape[-2] >= _FACTOR_MIN
 
 
+def _row_runs(p, g, s):
+    """(param, gradient, statistics) views over runs of ``p``'s leading rows
+    (every axis but the last two), at most `_CHUNK_ELEMENTS` elements a run
+    where a row is smaller than that; one run, the whole leaf, for a leaf of
+    fewer than three axes or elements."""
+    if p.ndim < 3 or p.numel() <= _CHUNK_ELEMENTS:
+        return [(p, g, s)]
+    mat = p.shape[-2:]
+    rows = p.numel() // (mat[0] * mat[1])
+    per = max(1, _CHUNK_ELEMENTS // (mat[0] * mat[1]))
+    views = {k: v.reshape(rows, *v.shape[p.ndim - 2:]) for k, v in s.items()}
+    P, G = p.view(rows, *mat), g.reshape(rows, *mat)
+    return [(P[i:i + per], G[i:i + per], {k: v[i:i + per] for k, v in views.items()})
+            for i in range(0, rows, per)]
+
+
 def adafactor(
     lr_fn,
     decay: float = 0.8,           # beta2 = 1 - step^-decay
@@ -154,28 +187,43 @@ def adafactor(
         beta2 = 1.0 - step.to(torch.float32) ** (-decay)
         lr = lr_fn(step)
 
-        def upd(p, g, s):
+        def direction(g, s, first):
+            """The unclipped update g / sqrt(vhat); ``first`` moves the
+            statistics ``s`` on by this step's gradient first."""
             g = g.float()
-            g2 = g.square() + eps
+            if first:
+                g2 = g.square() + eps
+                if "vr" in s:
+                    s["vr"].copy_(beta2 * s["vr"] + (1 - beta2) * g2.mean(-1))
+                    s["vc"].copy_(beta2 * s["vc"] + (1 - beta2) * g2.mean(-2))
+                else:
+                    s["v"].copy_(beta2 * s["v"] + (1 - beta2) * g2)
+                del g2
             if "vr" in s:
-                vr = beta2 * s["vr"] + (1 - beta2) * g2.mean(-1)
-                vc = beta2 * s["vc"] + (1 - beta2) * g2.mean(-2)
+                vr, vc = s["vr"], s["vc"]
                 denom = vr.mean(-1, keepdim=True)[..., None]
                 vhat = (vr[..., None] * vc[..., None, :]) / torch.clamp(denom, min=eps)
-                s["vr"].copy_(vr)
-                s["vc"].copy_(vc)
             else:
-                vhat = beta2 * s["v"] + (1 - beta2) * g2
-                s["v"].copy_(vhat)
-            del g2
-            u = g * torch.rsqrt(vhat + eps)
+                vhat = s["v"]
+            return g * torch.rsqrt(vhat + eps)
+
+        def upd(p, g, s):
+            runs = _row_runs(p, g, s)
+            if len(runs) == 1:
+                u = direction(g, s, True)
+                ms = torch.mean(u.square())
+            else:        # the RMS over every run first, then each run again
+                ms = sum(direction(gr, sr, True).square().sum() for _, gr, sr in runs)
+                ms = ms / p.numel()
             # Update clipping (RMS at most the threshold).
-            rms = torch.sqrt(torch.mean(u.square()) + 1e-30)
-            u = u / torch.clamp(rms / clip_threshold, min=1.0)
-            p_new = p.float() - lr * u
-            if weight_decay and p.ndim >= 2:
-                p_new = p_new - lr * weight_decay * p.float()
-            p.copy_(p_new)
+            rms = torch.sqrt(ms + 1e-30)
+            for pr, gr, sr in runs:
+                ur = u if len(runs) == 1 else direction(gr, sr, False)
+                ur = ur / torch.clamp(rms / clip_threshold, min=1.0)
+                p_new = pr.float() - lr * ur
+                if weight_decay and p.ndim >= 2:
+                    p_new = p_new - lr * weight_decay * pr.float()
+                pr.copy_(p_new)
 
         for p, g, s in _zip_leaves(params, grads, state["stats"]):
             upd(p, g, s)

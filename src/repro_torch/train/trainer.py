@@ -2,9 +2,12 @@
 
 `Trainer.run` draws step-indexed batches, moves them to the device, runs
 the train step and logs each step's loss, gradient norm and seconds.  It
-runs on ``device="cuda"`` unless asked otherwise.  A mesh or sharding
-strategy (ROADMAP Queue 1 item 14) and checkpointing (``ckpt_dir``, item
-9) raise `NotImplementedError`.
+runs on ``device="cuda"`` unless asked otherwise.  With ``ckpt_dir`` it
+saves the train state every ``ckpt_every`` steps and at the end, in the
+reference's checkpoint format, and `init_or_restore` resumes from the
+newest committed checkpoint, written by either package: a job moves
+between a JAX host and this port by checkpoint and resume.  A mesh or
+sharding strategy (ROADMAP Queue 1 item 14) raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -15,16 +18,19 @@ from typing import Callable, Dict, Iterable, List, Optional
 
 import torch
 
+from ..ckpt import CheckpointManager
 from ..data import DataConfig, SyntheticLM
 from ..models import ModelConfig
 from .optimizer import Optimizer, make_optimizer
-from .train_step import init_state, make_train_step
+from .train_step import init_state, make_train_step, state_shapes
 
 
 @dataclasses.dataclass
 class TrainerConfig:
     steps: int = 100
-    ckpt_dir: Optional[str] = None     # raises until checkpointing is ported
+    ckpt_every: int = 50
+    ckpt_dir: Optional[str] = None
+    ckpt_keep: int = 3
     log_every: int = 10
     loss_chunk: int = 0
     n_microbatch: int = 1
@@ -50,8 +56,6 @@ class Trainer:
         if mesh is not None or strategy is not None:
             raise NotImplementedError("sharded training (mesh / strategy): "
                                       "ROADMAP Queue 1 item 14")
-        if tcfg.ckpt_dir:
-            raise NotImplementedError("checkpointing (ckpt_dir): ROADMAP Queue 1 item 9")
         self.cfg = cfg
         self.tcfg = tcfg
         self.data = data
@@ -62,11 +66,21 @@ class Trainer:
             cfg.optimizer, lr=1e-3, warmup=max(1, tcfg.steps // 10), total_steps=tcfg.steps)
         self.step_hooks = step_hooks or []
         self.metrics_log: List[Dict] = []
+        self.ckpt = (CheckpointManager(tcfg.ckpt_dir, keep=tcfg.ckpt_keep)
+                     if tcfg.ckpt_dir else None)
         self._step = make_train_step(cfg, self.optimizer, loss_chunk=tcfg.loss_chunk,
                                      n_microbatch=tcfg.n_microbatch)
 
     def init_or_restore(self):
-        """Fresh parameters from ``tcfg.seed`` (no checkpoint to resume yet)."""
+        """Resume from the newest committed checkpoint in ``ckpt_dir``
+        (restored onto the device, at the step its ``extra`` names), or
+        fresh parameters from ``tcfg.seed``."""
+        if self.ckpt is not None:
+            restored = self.ckpt.restore_latest(state_shapes(self.cfg, self.optimizer),
+                                                device=self.device)
+            if restored is not None:
+                state, extra = restored
+                return state, int(extra.get("step", 0))
         generator = torch.Generator(self.device).manual_seed(self.tcfg.seed)
         return init_state(generator, self.cfg, self.optimizer, device=self.device), 0
 
@@ -90,6 +104,12 @@ class Trainer:
                 print(f"step {step:5d}  loss {loss:.4f}  {dt*1e3:.0f} ms")
             for hook in self.step_hooks:
                 hook(self, step, state, rec)
+            if (self.ckpt is not None and step > 0
+                    and step % self.tcfg.ckpt_every == 0):
+                self.ckpt.save_async(step, state, {"step": step + 1})
+        if self.ckpt is not None:
+            self.ckpt.save_async(self.tcfg.steps, state, {"step": self.tcfg.steps})
+            self.ckpt.wait()
         return state
 
 

@@ -35,7 +35,9 @@ def test_every_submodule_imports_without_jax_or_repro():
             "repro_torch.convert", "repro_torch.configs.granite_3_2b",
             "repro_torch.train.optimizer", "repro_torch.train.train_step",
             "repro_torch.train.trainer", "repro_torch.data.pipeline",
-            "repro_torch.models.ssm", "repro_torch.kernels.ssm_scan"} <= set(names)
+            "repro_torch.models.ssm", "repro_torch.kernels.ssm_scan",
+            "repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
+            "repro_torch.models.moe"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"
@@ -48,6 +50,30 @@ def test_every_submodule_imports_without_jax_or_repro():
                          env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""}, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("BAD []"), out.stdout
+
+
+def test_checkpoints_need_neither_ml_dtypes_nor_zstandard(tmp_path):
+    """As on a host without them: a bf16 / int8 / int32 tree saves (zlib)
+    and restores bit for bit, and neither module is imported."""
+    code = (
+        "import sys\n"
+        "sys.modules['ml_dtypes'] = None\n"
+        "sys.modules['zstandard'] = None\n"
+        "import torch\n"
+        "from repro_torch.ckpt import checkpoint as ck\n"
+        "assert ck.zstandard is None and ck._DEFAULT_CODEC == 'zlib'\n"
+        "tree = {'w': torch.randn(3, 5).to(torch.bfloat16), 'q': [torch.arange(-4, 4, "
+        "dtype=torch.int8)], 'step': torch.tensor(7, dtype=torch.int32)}\n"
+        f"path = ck.save({str(tmp_path)!r}, 1, tree)\n"
+        "got = ck.restore(path, tree)\n"
+        "assert all(torch.equal(got[k], tree[k]) for k in ('w', 'step'))\n"
+        "assert torch.equal(got['q'][0], tree['q'][0])\n"
+        "print('OK')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""}, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "OK"
 
 
 def _sources():
