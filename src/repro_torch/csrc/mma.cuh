@@ -61,6 +61,15 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "r"(smem_addr(p)));
 }
 
+// An 8 x 8 b16 matrix in ldmatrix's layout (lane l holds row l / 4,
+// columns 2 (l % 4) and 2 (l % 4) + 1, the lower column in the low half),
+// transposed across the warp: lane l then holds row l / 4 of the transpose.
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
 // d += a * b, bf16 operands, fp32 accumulators.
 __device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
                                                uint32_t b0, uint32_t b1) {

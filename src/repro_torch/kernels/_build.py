@@ -191,9 +191,9 @@ _PTR, _INT, _I64, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, cty
 SIGNATURES = {
     # x, scale, out, rows, d, eps, is_bf16, stream
     "repro_rms_norm": [_PTR, _PTR, _PTR, _INT, _INT, _FLOAT, _INT, _PTR],
-    # q, k, v, kv_len, out, part_m, part_l, part_acc,
+    # q, k, v, kv_len, out, part_m, part_l, part_acc, counters,
     # B, Sk, Hq, Hkv, D, chunk, n_splits, is_bf16, stream
-    "repro_decode_attention": [_PTR] * 8 + [_INT] * 8 + [_PTR],
+    "repro_decode_attention": [_PTR] * 9 + [_INT] * 9 + [_PTR],
     # q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, D, causal, is_bf16, stream
     "repro_flash_attention": [_PTR] * 5 + [_INT] * 8 + [_PTR],
     # x, Bm, Cm, dt, A_log, D, y, state, B, S, H, P, N, chunk,

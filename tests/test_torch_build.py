@@ -7,8 +7,10 @@ the parsers run on fixed samples of both tools' output."""
 import shutil
 
 import pytest
+import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention import kernel_instance
 
 FLASH_BF16 = ("_ZN51_GLOBAL__N__04cf38d3_18_flash_attention_cu_c45a2b1821flash_fwd_bf16_kernel"
               "ILi64ELb0EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiiiiifi")
@@ -67,3 +69,29 @@ def test_demangle_keeps_the_kernel_and_its_template_arguments():
     assert _build.demangle([FLASH_BF16, SSM_F32]) == {
         FLASH_BF16: "flash_fwd_bf16_kernel<64, false>", SSM_F32: "ssm_scan_kernel"}
     assert _build.demangle([]) == {}
+
+
+DECODE_TC = ("_ZN52_GLOBAL__N__1f2e3d4c_19_decode_attention_cu_9a8b7c6d21decode_bf16_tc_kernel"
+             "ILi128ELb0EEEvPK13__nv_bfloat16S3_S3_PKiPS1_PfS7_S7_iiiiifi")
+
+
+def test_the_tensor_core_decode_instance_reads_under_the_name_the_wrapper_gives():
+    """The tensor-core decode instance's lines, read as the build line reads
+    them, under the name `kernel_instance` gives chip_smoke.py's timing."""
+    ptxas = f"""== decode_attention.cu
+ptxas info    : Compiling entry function '{DECODE_TC}' for 'sm_90a'
+ptxas info    : Function properties for {DECODE_TC}
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers
+"""
+    sass = f"""\t\tFunction : {DECODE_TC}
+        /*0000*/                   HMMA.16816.F32.BF16 R8, R12, R4, R8 ;
+        /*0010*/                   MOVM.16.MT88 R4, R6 ;
+        /*0020*/                   HMMA.16816.F32.BF16 R16, R12, R2, R16 ;
+"""
+    assert _build.parse_ptxas(ptxas) == {DECODE_TC: {"registers": 96, "spill_bytes": 0}}
+    assert _build.count_sass(sass, "HMMA") == {DECODE_TC: 2}
+    assert _build.count_sass(sass, "MOVM") == {DECODE_TC: 1}
+    if shutil.which("c++filt") is None and shutil.which("cu++filt") is None:
+        return
+    assert _build.demangle([DECODE_TC]) == {DECODE_TC: kernel_instance(torch.bfloat16, 6, 128)}

@@ -117,7 +117,7 @@ def test_build_plan_needs_no_nvcc(tmp_path, monkeypatch):
     assert _build.library_path().parent == tmp_path
     assert set(_build.SIGNATURES) == {"repro_rms_norm", "repro_decode_attention",
                                       "repro_flash_attention", "repro_ssm_scan"}
-    assert len(_build.SIGNATURES["repro_decode_attention"]) == 17
+    assert len(_build.SIGNATURES["repro_decode_attention"]) == 19
     assert len(_build.SIGNATURES["repro_flash_attention"]) == 14
     assert len(_build.SIGNATURES["repro_ssm_scan"]) == 22
 
