@@ -18,16 +18,27 @@ where `zstandard` is installed, else zlib; reading a zstd checkpoint
 without `zstandard` raises.  msgpack holds at most 4 GiB in one bin, so a
 larger leaf cannot be saved (in either package).
 
+Shards are compressed and inflated on several host cores: each shard is
+compressed on its own, and both codecs release the interpreter lock, so a
+pool of threads (one a core this process may run on) works on the next
+shards while the calling thread copies, packs and writes, or unpacks, in
+shard order.  Every file is byte for byte what one thread would write; at
+most one shard a thread is in flight (~256 MB of payload and its
+compressed bytes each).
+
 `restore` takes a tree of tensors, or of ``meta`` tensors (`state_shapes`),
 and puts each leaf on ``device`` shard by shard as it reads.  `save` and
 `restore` take an optional ``stats`` dict, into which they add the seconds
-of each stage and the bytes moved (what a relocation's cost is made of).  The
+of each stage and the bytes moved (what a relocation's cost is made of);
+every stage's seconds are the calling thread's wall time, so that they add
+up to the call's.  The
 expert-parallel and cross-mesh placement of the reference's ``shardings``
 argument belongs to the parallel layer, not yet ported.
 """
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures as cf
 import json
 import os
@@ -37,7 +48,7 @@ import tempfile
 import time
 import warnings
 import zlib
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Deque, Dict, Iterator, List, Optional, Tuple
 
 import msgpack
 import torch
@@ -66,25 +77,36 @@ _NAMES = {t: name for name, t in _DTYPES.items()}
 
 
 def _compress_fn(codec: str):
+    """The codec's compression of one payload, safe to call from several
+    threads at once (a zstd compressor object is not: one is made a call)."""
     if codec == "zstd":
         if zstandard is None:
             raise RuntimeError("zstd checkpoint requested but zstandard not installed")
-        return zstandard.ZstdCompressor(level=3).compress
+        return lambda payload: zstandard.ZstdCompressor(level=3).compress(payload)
     if codec == "zlib":
         return lambda payload: zlib.compress(payload, 6)
     raise ValueError(f"unknown checkpoint codec {codec!r}")
 
 
 def _decompress_fn(codec: str):
+    """As `_compress_fn`, the way back."""
     if codec == "zstd":
         if zstandard is None:
             raise RuntimeError(
                 "checkpoint was written with zstd but zstandard is not installed"
             )
-        return zstandard.ZstdDecompressor().decompress
+        return lambda packed: zstandard.ZstdDecompressor().decompress(packed)
     if codec == "zlib":
         return zlib.decompress
     raise ValueError(f"unknown checkpoint codec {codec!r}")
+
+
+def _host_cores() -> int:
+    """The cores this process may run on: the shard pool's threads."""
+    try:
+        return max(1, len(os.sched_getaffinity(0)))
+    except AttributeError:                   # no affinity call on this platform
+        return os.cpu_count() or 1
 
 
 def _shard_name(shard_id: int, codec: str) -> str:
@@ -161,10 +183,12 @@ def _add(stats: Optional[Dict], key: str, value) -> None:
 def save(directory: str, step: int, tree: Any, extra: Optional[Dict] = None,
          stats: Optional[Dict] = None) -> str:
     """Synchronous atomic save; returns the checkpoint path.  Leaves on a
-    device are copied to the host one at a time.  ``stats`` gains the
-    seconds of ``to_host`` (device-to-host copy and leaf bytes), ``pack``
-    (msgpack), ``compress`` and ``write``, and ``payload_bytes`` and
-    ``file_bytes``."""
+    device are copied to the host one at a time; each full shard is packed
+    and handed to the pool to compress, and written once compressed, in
+    shard order.  ``stats`` gains the seconds of ``to_host`` (device-to-host
+    copy and leaf bytes), ``pack`` (msgpack), ``compress`` (waiting for the
+    pool: compression not hidden behind the other stages) and ``write``,
+    and ``payload_bytes`` and ``file_bytes``."""
     final = os.path.join(directory, f"step_{step:08d}")
     tmp = tempfile.mkdtemp(prefix=".tmp_ckpt_", dir=directory or ".")
     codec = _DEFAULT_CODEC
@@ -176,44 +200,55 @@ def save(directory: str, step: int, tree: Any, extra: Optional[Dict] = None,
         "codec": codec,
     }
     compress = _compress_fn(codec)
+    workers = _host_cores()
     shard_id, buf, buf_bytes = 0, [], 0
+    in_flight: Deque[Tuple[int, cf.Future]] = collections.deque()  # oldest first
 
-    def flush():
+    def write_oldest():
+        shard, future = in_flight.popleft()
+        t0 = time.perf_counter()
+        packed = future.result()
+        t1 = time.perf_counter()
+        with open(os.path.join(tmp, _shard_name(shard, codec)), "wb") as f:
+            f.write(packed)
+        _add(stats, "compress", t1 - t0)
+        _add(stats, "write", time.perf_counter() - t1)
+        _add(stats, "file_bytes", len(packed))
+
+    def flush(pool):
         nonlocal shard_id, buf, buf_bytes
         if not buf:
             return
+        if len(in_flight) == workers:
+            write_oldest()
         t0 = time.perf_counter()
         payload = msgpack.packb(buf, use_bin_type=True)
-        t1 = time.perf_counter()
-        packed = compress(payload)
-        t2 = time.perf_counter()
-        with open(os.path.join(tmp, _shard_name(shard_id, codec)), "wb") as f:
-            f.write(packed)
-        _add(stats, "pack", t1 - t0)
-        _add(stats, "compress", t2 - t1)
-        _add(stats, "write", time.perf_counter() - t2)
-        _add(stats, "file_bytes", len(packed))
+        _add(stats, "pack", time.perf_counter() - t0)
+        in_flight.append((shard_id, pool.submit(compress, payload)))
         shard_id += 1
         buf, buf_bytes = [], 0
 
-    for path, leaf in _flat(tree):
-        t0 = time.perf_counter()
-        t = leaf.detach().cpu()
-        if t.dtype not in _NAMES:
-            raise ValueError(f"checkpoint leaf {path}: type {t.dtype} has no numpy name")
-        manifest["leaves"].append({
-            "path": path,
-            "shape": list(t.shape),
-            "dtype": _NAMES[t.dtype],
-            "shard": shard_id,
-        })
-        buf.append({"path": path, "data": _leaf_bytes(path, t.contiguous())})
-        buf_bytes += t.numel() * t.element_size()
-        _add(stats, "to_host", time.perf_counter() - t0)
-        _add(stats, "payload_bytes", t.numel() * t.element_size())
-        if buf_bytes >= _SHARD_BYTES:
-            flush()
-    flush()
+    with cf.ThreadPoolExecutor(max_workers=workers) as pool:
+        for path, leaf in _flat(tree):
+            t0 = time.perf_counter()
+            t = leaf.detach().cpu()
+            if t.dtype not in _NAMES:
+                raise ValueError(f"checkpoint leaf {path}: type {t.dtype} has no numpy name")
+            manifest["leaves"].append({
+                "path": path,
+                "shape": list(t.shape),
+                "dtype": _NAMES[t.dtype],
+                "shard": shard_id,
+            })
+            buf.append({"path": path, "data": _leaf_bytes(path, t.contiguous())})
+            buf_bytes += t.numel() * t.element_size()
+            _add(stats, "to_host", time.perf_counter() - t0)
+            _add(stats, "payload_bytes", t.numel() * t.element_size())
+            if buf_bytes >= _SHARD_BYTES:
+                flush(pool)
+        flush(pool)
+        while in_flight:
+            write_oldest()
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
     with open(os.path.join(tmp, _COMMIT), "w") as f:
@@ -249,38 +284,52 @@ def _read_manifest(path: str) -> Dict:
 
 def _iter_leaves(path: str, stats: Optional[Dict] = None) -> Iterator[Tuple[str, torch.Tensor]]:
     """(leaf path, host tensor) shard by shard; each tensor is a view of its
-    shard's bytes, read-only in spirit: copy before writing to it.
-    ``stats`` gains the seconds of ``read``, ``decompress`` and ``unpack``,
-    and ``file_bytes``."""
+    shard's bytes, read-only in spirit: copy before writing to it.  The
+    pool inflates the next shards while the caller takes this one's leaves.
+    ``stats`` gains the seconds of ``read``, ``decompress`` (waiting for
+    the pool) and ``unpack``, and ``file_bytes``."""
     manifest = _read_manifest(path)
     codec = manifest.get("codec", "zstd")  # pre-codec checkpoints were zstd
     decompress = _decompress_fn(codec)
     by_shard: Dict[int, List[Dict]] = {}
     for leaf in manifest["leaves"]:
         by_shard.setdefault(leaf["shard"], []).append(leaf)
-    for shard, leaves in by_shard.items():
+    order = list(by_shard)
+    workers = _host_cores()
+    in_flight: Deque[cf.Future] = collections.deque()  # oldest first
+
+    def read(shard):
         t0 = time.perf_counter()
         with open(os.path.join(path, _shard_name(shard, codec)), "rb") as f:
             packed = f.read()
-        t1 = time.perf_counter()
-        payload = decompress(packed)
-        t2 = time.perf_counter()
-        items = msgpack.unpackb(payload, raw=False)
-        _add(stats, "read", t1 - t0)
-        _add(stats, "decompress", t2 - t1)
-        _add(stats, "unpack", time.perf_counter() - t2)
+        _add(stats, "read", time.perf_counter() - t0)
         _add(stats, "file_bytes", len(packed))
-        del packed, payload
-        data = {i["path"]: i["data"] for i in items}
-        del items
-        for leaf in leaves:
-            raw = data[leaf["path"]]
-            dtype = _DTYPES[leaf["dtype"]]
-            with warnings.catch_warnings():      # bytes are not writable; callers copy
-                warnings.simplefilter("ignore", UserWarning)
-                flat = (torch.frombuffer(raw, dtype=dtype) if raw
-                        else torch.empty(0, dtype=dtype))
-            yield leaf["path"], flat.reshape(leaf["shape"])
+        in_flight.append(pool.submit(decompress, packed))
+
+    with cf.ThreadPoolExecutor(max_workers=workers) as pool:
+        ahead = iter(order)
+        for shard in order:
+            for later in ahead:
+                read(later)
+                if len(in_flight) == workers:
+                    break
+            t0 = time.perf_counter()
+            payload = in_flight.popleft().result()
+            t1 = time.perf_counter()
+            items = msgpack.unpackb(payload, raw=False)
+            _add(stats, "decompress", t1 - t0)
+            _add(stats, "unpack", time.perf_counter() - t1)
+            del payload
+            data = {i["path"]: i["data"] for i in items}
+            del items
+            for leaf in by_shard[shard]:
+                raw = data[leaf["path"]]
+                dtype = _DTYPES[leaf["dtype"]]
+                with warnings.catch_warnings():      # bytes are not writable; callers copy
+                    warnings.simplefilter("ignore", UserWarning)
+                    flat = (torch.frombuffer(raw, dtype=dtype) if raw
+                            else torch.empty(0, dtype=dtype))
+                yield leaf["path"], flat.reshape(leaf["shape"])
 
 
 def _load_raw(path: str) -> Dict[str, torch.Tensor]:

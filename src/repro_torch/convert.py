@@ -31,7 +31,11 @@ def _to_tensor(a, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
 
 def params_from_jax(tree: Any, device="cuda", dtype: Optional[torch.dtype] = None):
     """A parameter pytree of numpy arrays -> the port's tree of tensors on
-    ``device``; floating leaves are cast to ``dtype`` when one is given."""
+    ``device``; EVERY floating leaf is cast to ``dtype`` when one is given.
+    Without ``dtype`` each leaf keeps its type, which is what a bf16 model
+    needs: some leaves are fp32 under bf16 parameters (Mamba2's ``A_log``,
+    ``D`` and ``dt_bias``, the routers' weights, and the xLSTM mixers'
+    ``w_gates`` and sLSTM's ``r_gates``), and ``dtype`` would round them."""
     return tree_map(lambda a: _to_tensor(a, device, dtype), tree)
 
 
@@ -46,12 +50,13 @@ def cache_from_jax(tree: Any, device="cuda", dtype: Optional[torch.dtype] = None
     """A cache pytree (`init_cache`, or one slot's `export_slot` payload) of
     numpy arrays -> tensors; ``index`` keeps its integer type, python
     scalars (the payload's ``offset``) pass through.  ``dtype`` casts the
-    leaves held in the compute type (K, V, conv windows); the Mamba2
-    ``state`` leaves stay fp32, as `init_ssm_cache` makes them."""
+    leaves held in the compute type (K, V, conv windows); the recurrent
+    states (Mamba2's ``state``, the xLSTM mixers' ``C``, ``n``, ``m``,
+    ``c`` and ``h``) stay fp32, as the caches' inits make them."""
     def convert(a, key):
         if isinstance(a, (int, float)):
             return a
-        return _to_tensor(a, device, None if key == "state" else dtype)
+        return _to_tensor(a, device, dtype if key in ("k", "v", "conv") else None)
 
     def walk(t, key=None):
         if isinstance(t, dict):

@@ -1,4 +1,4 @@
-"""Decoder-LM assembly: the dense and the Mamba2 hybrid families.
+"""Decoder-LM assembly: the dense, MoE, Mamba2 hybrid and xLSTM families.
 
 Layer stacks are grouped into their minimal repeating *period*; the params
 and caches of the period's layers carry a leading ``(n_full,)`` axis, as in
@@ -12,14 +12,15 @@ aux losses summed over the layers) and of Mamba2 mixers with zamba2's
 weight-shared attention block, applied at the start of each period of
 ``shared_attn_every`` layers and before each tail layer whose index is a
 multiple of it; its KV caches are per depth (``shared`` stacked over the
-periods, ``tail_shared`` a list).  xLSTM blocks, the encoder and
+periods, ``tail_shared`` a list), and of xLSTM's mLSTM and sLSTM mixers
+(xlstm-1.3b: periods of 7 mLSTM and 1 sLSTM).  The encoder and
 cross-attention, vision prefixes and hoisted RoPE tables raise
-`NotImplementedError` (ROADMAP Queue 1 items 12-13).
+`NotImplementedError` (ROADMAP Queue 1 item 13).
 
 `forward` covers full-sequence and cached (prefill-into-cache, decode) runs
 via the optional cache, and runs under autograd when grad is enabled (the
 serving steps turn it off); `lm_loss` is the training loss.  The cache's K
-and V, conv windows and SSM states are updated IN PLACE.  Each stacked
+and V, conv windows and SSM and xLSTM states are updated IN PLACE.  Each stacked
 parameter leaf is unbound once a forward (`torch.unbind`, whose backward
 stacks the layers' gradients in one allocation) instead of being indexed
 layer by layer.
@@ -36,7 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .._tree import tree_map, tree_stack
 from .attention import attention, init_attention, init_kv_cache
-from .config import BLOCK_ATTN, BLOCK_MAMBA2, BLOCK_MOE, ModelConfig
+from .config import BLOCK_ATTN, BLOCK_MAMBA2, BLOCK_MLSTM, BLOCK_MOE, BLOCK_SLSTM, ModelConfig
 from .ffn import ffn, init_ffn
 from .layers import (
     apply_linear,
@@ -52,6 +53,14 @@ from .layers import (
 )
 from .moe import init_moe, moe_ffn
 from .ssm import init_mamba2, init_ssm_cache, mamba2_block
+from .xlstm import (
+    init_mlstm,
+    init_mlstm_cache,
+    init_slstm,
+    init_slstm_cache,
+    mlstm_block,
+    slstm_block,
+)
 
 
 # ---------------------------------------------------------------- layout --
@@ -87,7 +96,12 @@ def stack_layout(cfg: ModelConfig) -> StackLayout:
     return StackLayout(pattern, p, n_full, tail, bool(cfg.shared_attn_every))
 
 
-_PORTED_KINDS = {BLOCK_ATTN, BLOCK_MOE, BLOCK_MAMBA2}
+# Each mixer kind: its init, its cache's init and its block.
+_MIXERS = {
+    BLOCK_MAMBA2: (init_mamba2, init_ssm_cache, mamba2_block),
+    BLOCK_MLSTM: (init_mlstm, init_mlstm_cache, mlstm_block),
+    BLOCK_SLSTM: (init_slstm, init_slstm_cache, slstm_block),
+}
 
 
 def _layout(cfg: ModelConfig) -> StackLayout:
@@ -97,10 +111,6 @@ def _layout(cfg: ModelConfig) -> StackLayout:
         raise NotImplementedError("encoder-decoder: ROADMAP Queue 1 item 13")
     if cfg.mrope or cfg.vision_stub_patches:
         raise NotImplementedError("VLM / M-RoPE: ROADMAP Queue 1 item 13")
-    other = sorted(set(layout.kinds) - _PORTED_KINDS)
-    if other:
-        raise NotImplementedError(
-            f"block kinds {other}: ROADMAP Queue 1 item 12")
     return layout
 
 
@@ -123,24 +133,27 @@ def _init_attn_block(generator, cfg: ModelConfig, dtype, device, moe: bool = Fal
 
 def init_block(generator, cfg: ModelConfig, kind: str, dtype, cross: bool = False,
                device=None) -> Dict:
-    if kind not in _PORTED_KINDS or cross:
-        raise NotImplementedError(f"block kind {kind!r} (cross={cross}): "
-                                  "ROADMAP Queue 1 items 12-13")
+    if cross:
+        raise NotImplementedError("cross-attention blocks: ROADMAP Queue 1 item 13")
     device = generator.device if device is None else device
-    if kind == BLOCK_MAMBA2:
+    if kind in _MIXERS:
         return {"norm1": init_rmsnorm(cfg.d_model, dtype, device),
-                "mixer": init_mamba2(generator, cfg, dtype, device=device)}
-    return _init_attn_block(generator, cfg, dtype, device, moe=kind == BLOCK_MOE)
+                "mixer": _MIXERS[kind][0](generator, cfg, dtype, device=device)}
+    if kind in (BLOCK_ATTN, BLOCK_MOE):
+        return _init_attn_block(generator, cfg, dtype, device, moe=kind == BLOCK_MOE)
+    raise ValueError(kind)
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      cross_len: int = 0, device="cuda") -> Dict:
-    if kind not in _PORTED_KINDS or cross_len:
-        raise NotImplementedError(f"cache for block kind {kind!r} "
-                                  f"(cross_len={cross_len}): ROADMAP Queue 1 items 12-13")
-    if kind == BLOCK_MAMBA2:
-        return {"mixer": init_ssm_cache(cfg, batch, device)}
-    return {"attn": init_kv_cache(cfg, batch, max_len, dtype_of(cfg.compute_dtype), device)}
+    if cross_len:
+        raise NotImplementedError(f"cross-attention cache (cross_len={cross_len}): "
+                                  "ROADMAP Queue 1 item 13")
+    if kind in _MIXERS:
+        return {"mixer": _MIXERS[kind][1](cfg, batch, device)}
+    if kind in (BLOCK_ATTN, BLOCK_MOE):
+        return {"attn": init_kv_cache(cfg, batch, max_len, dtype_of(cfg.compute_dtype), device)}
+    raise ValueError(kind)
 
 
 def init_lm(generator: torch.Generator, cfg: ModelConfig, device=None) -> Dict:
@@ -246,14 +259,14 @@ def _add(total, aux):
 
 def apply_block(kind, bp, x, cfg, *, positions, cache, index):
     """One layer: an attention + FFN or MoE-FFN block (zamba2's shared
-    block too, with its own per-depth KV cache), or a Mamba2 mixer block.
-    Returns (x, aux loss or None).  The cache, if any, is updated in
-    place."""
+    block too, with its own per-depth KV cache), or a mixer block (Mamba2,
+    mLSTM, sLSTM): ``norm1``, the mixer, the residual add.  Returns (x,
+    aux loss or None).  The cache, if any, is updated in place."""
     if kind in (BLOCK_ATTN, BLOCK_MOE):
         x, _, aux = _attn_block(bp, x, cfg, positions, cache, index, None, kind)
         return x, aux
     h = _bar(fused_rms_norm(x, bp["norm1"]["scale"], cfg.norm_eps), cfg)
-    m, _ = mamba2_block(bp["mixer"], h, cfg, None if cache is None else cache["mixer"])
+    m, _ = _MIXERS[kind][2](bp["mixer"], h, cfg, None if cache is None else cache["mixer"])
     return x + m, None
 
 

@@ -191,7 +191,7 @@ def test_module_registers_the_tree():
 @pytest.mark.parametrize("arch", [a for a in ARCH_IDS if a not in
                                   ("qwen1.5-0.5b", "granite-3-2b", "nemotron-4-15b",
                                    "qwen1.5-110b", "zamba2-7b", "dbrx-132b",
-                                   "kimi-k2-1t-a32b")])
+                                   "kimi-k2-1t-a32b", "xlstm-1.3b")])
 def test_unsupported_families_raise(arch):
     cfg = tmodels.reduced(tget_config(arch), vocab_size=64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
