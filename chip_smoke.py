@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a), holds
 each against its plain PyTorch version on the card, then drives the port's
-paths with four models at full width (bf16, random weights from seed 0):
+paths with six models at full width (bf16, random weights from seed 0):
 it serves requests through `repro_torch.serve.ServeEngine` and trains for a
 few steps through `repro_torch.train.Trainer` (2 x 4096 tokens a step,
 block remat, the config's optimizer), with granite-3-2b (dense GQA, all 40
@@ -15,7 +15,14 @@ shared attention block; all 81 layers served, 39 trained: ``serve_zamba2``,
 trained: ``serve_dbrx``, ``train_dbrx``) and xlstm-1.3b (mLSTM and sLSTM
 blocks at [7:1]; all 48 blocks served, one period of 8 trained:
 ``serve_xlstm``, ``train_xlstm``, after ``slstm_layer`` times one sLSTM
-layer's token loop at the training shape).  ``relocate_train`` moves a
+layer's token loop at the training shape), seamless-m4t-large-v2
+(encoder-decoder, 24 + 24 layers, stub frame embeddings: ``serve_seamless``
+prefills 8 sequences of 2048 frames and 16 prompt tokens and decodes 48
+greedy steps, ``train_seamless`` trains on 2 x 4096 tokens over 2 x 2048
+frames) and qwen2-vl-2b (VLM with M-RoPE, all 28 layers: ``serve_qwen2vl``
+serves text requests through the engine, ``train_qwen2vl`` trains on 256
+stub patch embeddings on a 16 x 16 grid and 3840 text tokens a sequence).
+``relocate_train`` moves a
 granite training job through a checkpoint: stopped after a save, resumed by
 a fresh `Trainer`, it must restore every leaf bit for bit and repeat the
 stopped job's next loss bit for bit.  It checks that each path really went
@@ -23,7 +30,9 @@ through its kernels (launch counts equal to their per-step formulas), that
 the kernels' path agrees with the plain path for serving and for training,
 and that a live slot (KV caches, and a recurrent stack's conv windows and
 SSM or xLSTM states) moved to another engine goes on decoding
-bit-identically, for cuts of the four models.  Prints one JSON object a line, and each phase's
+bit-identically, for cuts of the models (seamless: prefill and decode
+steps, no migration, as the reference's engine cannot hold an
+encoder-decoder slot; qwen2-vl: a vision prefill, then decode steps).  Prints one JSON object a line, and each phase's
 seconds as it ends; the last line is ``{"ok": true, "device": {...}}``.
 Exits non-zero, without that line, when there is no CUDA device or any
 phase fails: nothing is retried on the CPU.
@@ -55,7 +64,11 @@ PHASES = ("build", "kernels", "serve", "train", "serve_zamba2", "train_zamba2", 
           "path_vs_plain", "train_vs_plain", "migrate",
           "path_vs_plain_zamba2", "train_vs_fp32_zamba2", "train_vs_plain_zamba2",
           "migrate_zamba2", "path_vs_plain_dbrx", "migrate_dbrx",
-          "path_vs_plain_xlstm", "train_vs_fp32_xlstm", "train_vs_plain_xlstm", "migrate_xlstm")
+          "path_vs_plain_xlstm", "train_vs_fp32_xlstm", "train_vs_plain_xlstm", "migrate_xlstm",
+          "serve_seamless", "train_seamless", "serve_qwen2vl", "train_qwen2vl",
+          "path_vs_plain_seamless", "train_vs_fp32_seamless", "train_vs_plain_seamless",
+          "path_vs_plain_qwen2vl", "train_vs_fp32_qwen2vl", "train_vs_plain_qwen2vl",
+          "migrate_qwen2vl")
 
 # Published peaks of one H100 SXM (dense): device memory and arithmetic.
 HBM_BYTES_PER_S = 3.35e12
@@ -116,9 +129,27 @@ XLSTM_REQUESTS, XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_STEPS, XLSTM_CUT_LAYERS = 16, 8,
 # embedding; the H100 machine has no zstandard, and zlib compresses each
 # shard on one of its 8 cores, so a save takes about as long as its largest
 # shard (2 layers: 6 shards, the largest 537 MB, 51-53 s a save, two saves
-# a run, and the whole run 463 s; NVIDIA H100 80GB HBM3).  5 layers (4.05
-# GB, 11 shards, the largest 545 MB) keep the run inside its 600 s.
-RELOCATE_LAYERS, RELOCATE_STEPS, RELOCATE_EVERY, RELOCATE_STOP = 5, 6, 3, 4
+# a run; NVIDIA H100 80GB HBM3).  At 5 layers (4.05 GB, 11 shards, the
+# largest 545 MB) the phase took 167-190 s, and with the encoder-decoder's
+# and the VLM's phases the whole run 652 s, past its 600; 2 layers (2.22
+# GB) take the phase back to about 125 s.
+RELOCATE_LAYERS, RELOCATE_STEPS, RELOCATE_EVERY, RELOCATE_STOP = 2, 6, 3, 4
+# seamless-m4t-large-v2 (24 encoder + 24 decoder layers): frames of stub
+# embeddings a sequence served (2048 take the encoder through the flash
+# kernel), prompt tokens, greedy decode steps, train steps and the frames a
+# training sequence takes.  Its cuts: 4 + 4 layers; `train_vs_plain_seamless`
+# takes 3072 frames against 2048 decoder tokens, so that the cross-attention
+# also runs with Sq < Sk and the encoder at another length than the decoder.
+SEAMLESS_FRAMES, SEAMLESS_PROMPT, SEAMLESS_DECODE_STEPS, SEAMLESS_TRAIN_STEPS = 2048, 16, 48, 3
+SEAMLESS_TRAIN_FRAMES, SEAMLESS_CUT_FRAMES = 2048, 3072
+# qwen2-vl-2b (28 layers): requests served, train steps, stub patches a
+# sequence (a 16 x 16 grid) and the loss chunk (1280 divides the 3840-token
+# text suffix; 1024 does not, and without a chunk that divides it the
+# reference's rule takes one (2, 3840, 151936) fp32 logits tensor, 4.7 GB);
+# the prompt of the cut's vision prefill.
+QWEN_REQUESTS, QWEN_TRAIN_STEPS, QWEN_PATCHES, QWEN_LOSS_CHUNK, QWEN_CUT_PROMPT = \
+    16, 3, 256, 1280, 32
+CUT_LAYERS = 4                 # granite's, seamless's (encoder and decoder) and qwen2-vl's cuts
 # The fleet simulator's host phase of a move (repro.fleet.elastic_bridge.
 # SimulatedElasticBackend): bytes at 16 Gbit/s plus 0.01 s a shard file.
 SIM_HOST_GBPS, SIM_PER_SHARD_S = 16.0, 0.01
@@ -267,47 +298,70 @@ def stack_period(kinds, every):
     return max(period, every)
 
 
-def launches_per_step(cfg, train):
-    """Launches of each kernel in one decode step (``train`` False) or one
-    train step of ``cfg``, counted from the config alone and not from the
-    port's layout code, whose placement of the shared block and of the
-    periods the count checks.  Every layer (attention, Mamba2, mLSTM or
-    sLSTM: ``norm1`` and a second norm) and every application of zamba2's
-    shared block has two norms, plus the final norm; an attention layer or
-    shared block runs one attention, a Mamba2 layer one scan (decode steps
-    take the one-step recurrence, no kernel).  The shared block runs before
-    every layer whose index is a multiple of ``shared_attn_every``.  A train
+def launches_per_step(cfg, train, prefill=False):
+    """Launches of each kernel in one decode step (``train`` False), one
+    train step, or (``prefill``) an encoder-decoder's prefill of ``cfg``,
+    counted from the config alone and not from the port's layout code,
+    whose placement of the shared block and of the periods the count
+    checks.  Every layer (attention, Mamba2, mLSTM or sLSTM: ``norm1`` and
+    a second norm) and every application of zamba2's shared block has two
+    norms, plus the final norm; an attention layer or shared block runs one
+    attention, a Mamba2 layer one scan (decode steps take the one-step
+    recurrence, no kernel).  The shared block runs before every layer whose
+    index is a multiple of ``shared_attn_every``.  An encoder-decoder's
+    decoder layers have a third norm (``norm_cross``) and, in training and
+    prefill, a second attention over the encoder's memory; its encoder
+    runs in training and prefill, two norms and one attention a layer and
+    its final norm.  Decode steps read the cross cache through
+    `gqa_reference` (no kernel); in prefill the decoder's attention at the
+    prompt's length is `gqa_reference` (below CHUNKED_ATTN_THRESHOLD) and
+    the encoder's, at the phases' 2048 frames and more, the flash kernel,
+    as is every attention of a train step at the phases' lengths.  A train
     step runs the forward, then recomputes under block remat the layers of
-    whole periods (`stack_period`) with their shared blocks, but not the
-    tail layers, the shared blocks before them, nor the final norm."""
+    whole periods (`stack_period`) with their shared blocks and every
+    encoder layer, but not the tail layers, the shared blocks before them,
+    nor the final norms."""
     kinds = cfg.layer_pattern()
     every = cfg.shared_attn_every            # an MoE layer attends as a dense one does
     shared = [i for i in range(len(kinds)) if every and i % every == 0]
+    cross = int(cfg.n_encoder_layers > 0)
+    encoder = cfg.n_encoder_layers           # its layers' attentions; twice that in norms
 
     def count(kinds, shared, final_norm):
-        return {"rms_norm": 2 * (len(kinds) + len(shared)) + final_norm,
-                "attn": sum(k in ("attn", "moe") for k in kinds) + len(shared),
+        attn = sum(k in ("attn", "moe") for k in kinds)
+        return {"rms_norm": 2 * (len(kinds) + len(shared)) + cross * attn + final_norm,
+                "attn": attn + len(shared), "cross": cross * attn,
                 "ssm_scan": sum(k == "mamba2" for k in kinds)}
 
     fwd = count(kinds, shared, 1)
-    if not train:
+    if not train and not prefill:
         return {"rms_norm": fwd["rms_norm"], "decode_attention": fwd["attn"],
                 "flash_attention": 0, "ssm_scan": 0}
+    fwd_norms = fwd["rms_norm"] + 2 * encoder + cross
+    if prefill:
+        return {"rms_norm": fwd_norms, "decode_attention": 0, "flash_attention": encoder,
+                "ssm_scan": 0}
     period = stack_period(kinds, every)
     whole = len(kinds) // period * period
     again = count(kinds[:whole], [i for i in shared if i < whole], 0)
-    return {"rms_norm": fwd["rms_norm"] + again["rms_norm"], "decode_attention": 0,
-            "flash_attention": fwd["attn"] + again["attn"],
+    return {"rms_norm": fwd_norms + again["rms_norm"] + 2 * encoder, "decode_attention": 0,
+            "flash_attention": (fwd["attn"] + fwd["cross"] + again["attn"] + again["cross"]
+                                + 2 * encoder),
             "ssm_scan": fwd["ssm_scan"] + again["ssm_scan"]}
 
 
 # Each main path's launches a step, fixed by hand: granite-3-2b has 40
-# attention layers (5 in relocate_train); zamba2-7b 81 Mamba2 layers with the
+# attention layers (2 in relocate_train); zamba2-7b 81 Mamba2 layers with the
 # shared block before layers 0, 6, ..., 78 (14 times), and 39 layers (6
 # periods of 6 and 3 tail layers, 7 shared blocks) when trained; dbrx-132b 8
 # attention + MoE layers served and 3 trained; xlstm-1.3b 48 mLSTM and sLSTM
-# blocks (6 periods of 8) served and one period trained.  `launches_per_step`
-# must give these.
+# blocks (6 periods of 8) served and one period trained; seamless-m4t-large-v2
+# 24 encoder and 24 decoder layers (a decode step: 3 norms a decoder layer
+# and the final norm; its prefill also the encoder's 2 a layer and final
+# norm, and the encoder's 24 attentions through the flash kernel; a train
+# step both stacks' attentions, the cross-attention too, and again under
+# remat); qwen2-vl-2b 28 attention layers.  `launches_per_step` must give
+# these.
 MAIN_PATH_COUNTS = {
     "serve": dict(rms_norm=81, decode_attention=40, flash_attention=0, ssm_scan=0),
     "train": dict(rms_norm=81 + 80, decode_attention=0, flash_attention=40 + 40, ssm_scan=0),
@@ -318,8 +372,17 @@ MAIN_PATH_COUNTS = {
     "train_dbrx": dict(rms_norm=7 + 6, decode_attention=0, flash_attention=3 + 3, ssm_scan=0),
     "serve_xlstm": dict(rms_norm=97, decode_attention=0, flash_attention=0, ssm_scan=0),
     "train_xlstm": dict(rms_norm=17 + 16, decode_attention=0, flash_attention=0, ssm_scan=0),
-    "relocate_train": dict(rms_norm=11 + 10, decode_attention=0, flash_attention=5 + 5,
+    "serve_seamless": dict(rms_norm=73, decode_attention=24, flash_attention=0, ssm_scan=0),
+    "train_seamless": dict(rms_norm=122 + 120, decode_attention=0, flash_attention=72 + 72,
                            ssm_scan=0),
+    "serve_qwen2vl": dict(rms_norm=57, decode_attention=28, flash_attention=0, ssm_scan=0),
+    "train_qwen2vl": dict(rms_norm=57 + 56, decode_attention=0, flash_attention=28 + 28,
+                          ssm_scan=0),
+    "relocate_train": dict(rms_norm=5 + 4, decode_attention=0, flash_attention=2 + 2,
+                           ssm_scan=0),
+    # serve_seamless's prefill, once before its decode steps
+    "serve_seamless_prefill": dict(rms_norm=49 + 73, decode_attention=0, flash_attention=24,
+                                   ssm_scan=0),
 }
 
 
@@ -327,6 +390,14 @@ def carries_state(cfg):
     """Whether the stack holds a recurrent state (Mamba2, mLSTM or sLSTM
     layers), which carries each bf16 rounding on to every later position."""
     return bool({"mamba2", "mlstm", "slstm"} & set(cfg.layer_pattern()))
+
+
+def bf16_gradients_are_noise(cfg):
+    """Whether some of the stack's leaves have bf16 gradients or first
+    updates that rounding decides (see the note at TRAIN_TOL): a recurrent
+    state's, an attention's K bias (qkv_bias) or an encoder-decoder's
+    cross-attention."""
+    return carries_state(cfg) or cfg.qkv_bias or cfg.n_encoder_layers > 0
 
 
 def check_counts(what, counts, per_step, steps):
@@ -380,7 +451,9 @@ RMS_CASES = [((8, 1, 2048), "bfloat16"), ((300, 512), "float32"),
              ((4096, 2048), "bfloat16"), ((16, 8192), "bfloat16"),
              ((8, 1, 3584), "bfloat16"), ((8192, 3584), "bfloat16"),   # zamba2's d_model
              ((8, 1, 7168), "bfloat16"), ((8192, 7168), "bfloat16"),   # zamba2's gated norm
-             ((8, 1, 6144), "bfloat16"), ((8192, 6144), "bfloat16")]   # dbrx's d_model
+             ((8, 1, 6144), "bfloat16"), ((8192, 6144), "bfloat16"),   # dbrx's d_model
+             ((8, 1, 1536), "bfloat16"), ((8192, 1536), "bfloat16"),   # qwen2-vl's d_model
+             ((8, 1, 1024), "bfloat16"), ((8192, 1024), "bfloat16")]   # seamless's d_model
 
 # (name, B, Sk, Hq, Hkv, D, dtype); kv_len is ragged, see ragged_lens.  bf16
 # groups of 3 to 8 run the tensor-core instance, fp32 and bf16 groups of 1
@@ -401,6 +474,7 @@ DECODE_CASES = [
     ("kimi-k2", 8, 4096, 64, 8, 112, "bfloat16"),
     ("group3-d32", 2, 300, 6, 2, 32, "bfloat16"),
     ("padded-d96", 2, 500, 40, 8, 96, "bfloat16"),
+    ("qwen2-vl-2b", 8, 4096, 12, 2, 128, "bfloat16"),
 ]
 # The tile edges (a tile is 64 keys, 16 a warp) with Sk = 1000, no multiple
 # of 64: kv_len 0, 1, 63, 64, 65, the whole cache and two in between.
@@ -444,6 +518,13 @@ FLASH_BF16_CASES = [
 FLASH_TRAIN = ("granite-3-2b train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 8, 64)
 FLASH_ZAMBA = ("zamba2-7b train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 32, 112)
 FLASH_DBRX = ("dbrx-132b train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 48, 8, 128)
+FLASH_QWEN2VL = ("qwen2-vl-2b train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 12, 2, 128)
+# seamless's training cross-attention (4096 decoder tokens against 2048
+# frames) and its encoder, both non-causal.
+FLASH_SEAMLESS_CROSS = ("seamless cross", TRAIN_BATCH, TRAIN_SEQ, SEAMLESS_TRAIN_FRAMES,
+                        16, 16, 64)
+FLASH_SEAMLESS_ENCODER = ("seamless encoder", TRAIN_BATCH, SEAMLESS_TRAIN_FRAMES,
+                          SEAMLESS_TRAIN_FRAMES, 16, 16, 64)
 
 # (B, S, H, P, N, chunk): the cases of tests/test_kernels.py::TestSsmScan, and
 # zamba2-7b's training shape (d_inner 7168 = 112 heads of 64, state 64).
@@ -496,17 +577,17 @@ def check_flash(torch, checks, case, causal, dt, control=False):
     return err
 
 
-def check_flash_grad(torch, checks, Hq=8, Hkv=2, D=64):
+def check_flash_grad(torch, checks, Hq=8, Hkv=2, D=64, causal=True, Sq=300, Sk=300):
     """The training autograd Function (CUDA forward, ported backward) against
     autograd through the plain attention, fp32."""
     from repro_torch.models.attention import flash_attention_jnp, gqa_reference
-    B, S, chunk = 2, 300, 128                                # ragged last chunk
+    B, chunk = 2, 128                                        # ragged last chunks
     base = [rand(torch, shape, torch.float32, 31 + i, "cuda")
-            for i, shape in enumerate([(B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)])]
-    w = rand(torch, (B, S, Hq, D), torch.float32, 34, "cuda")
+            for i, shape in enumerate([(B, Sq, Hq, D), (B, Sk, Hkv, D), (B, Sk, Hkv, D)])]
+    w = rand(torch, (B, Sq, Hq, D), torch.float32, 34, "cuda")
     grads = []
-    for fn in (lambda q, k, v: flash_attention_jnp(q, k, v, True, chunk, chunk),
-               lambda q, k, v: gqa_reference(q, k, v, True)):
+    for fn in (lambda q, k, v: flash_attention_jnp(q, k, v, causal, chunk, chunk),
+               lambda q, k, v: gqa_reference(q, k, v, causal)):
         leaves = [t.clone().requires_grad_(True) for t in base]
         grads.append(torch.autograd.grad((fn(*leaves) * w).sum(), leaves))
     torch.cuda.synchronize()
@@ -517,7 +598,8 @@ def check_flash_grad(torch, checks, Hq=8, Hkv=2, D=64):
         worst = max(worst, ratio)
         require(ratio <= 1.0, f"flash_attention backward: d{name} differs by {float(err.max())}")
     checks.append(dict(kernel="flash_attention", case="autograd Function vs gqa_reference",
-                       shape=[B, S, Hq, Hkv, D], chunk=chunk, dtype="float32",
+                       shape=[B, Sq, Sk, Hq, Hkv, D], causal=causal, chunk=chunk,
+                       dtype="float32",
                        grad_err_over_tol=worst, tol=GRAD_TOL))
 
 
@@ -777,6 +859,10 @@ def phase_kernels(torch, device):
     check_flash_grad(torch, checks)
     check_flash_grad(torch, checks, Hq=4, Hkv=4, D=112)
     check_flash_grad(torch, checks, Hq=6, Hkv=1, D=128)      # dbrx's G 6 at d_head 128
+    # Non-causal at Sq != Sk both ways: seamless's encoder and cross heads
+    # (G 1, d_head 64), and G 6 at d_head 128.
+    check_flash_grad(torch, checks, Hq=4, Hkv=4, D=64, causal=False, Sq=300, Sk=172)
+    check_flash_grad(torch, checks, Hq=6, Hkv=1, D=128, causal=False, Sq=172, Sk=300)
 
     for case in SSM_CASES:
         for dt in ("float32", "bfloat16"):
@@ -917,26 +1003,161 @@ def phase_serve(torch, device, cfg, n_requests, phase="serve"):
     return launches
 
 
-def train_batches(torch, cfg, device, n, seq, seed):
-    from repro_torch.data import DataConfig, SyntheticLM
-    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, global_batch=TRAIN_BATCH,
-                                  seq_len=seq, seed=seed))
+def phase_serve_encdec(torch, device, cfg, phase="serve_seamless"):
+    """An encoder-decoder at full size through its prefill and decode steps
+    (the engine takes no cross length, as the reference's does not):
+    `SERVE_SLOTS` sequences in lockstep, each with `SEAMLESS_FRAMES` stub
+    frame embeddings and a `SEAMLESS_PROMPT`-token prompt, through
+    ``make_prefill_step(cfg, SERVE_MAX_LEN, cross_len=SEAMLESS_FRAMES)``, then
+    `SEAMLESS_DECODE_STEPS` greedy decode steps.  Finite logits, tokens in
+    the vocabulary, the prefill's launches equal to its count and the
+    decode steps' to steps times theirs."""
+    import numpy as np
+    from repro_torch.serve import make_decode_step, make_prefill_step
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = build_model(torch, cfg, device)
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(
+                 SERVE_SLOTS, SEAMLESS_PROMPT)).astype(np.int32)).to(device),
+             "encoder_embeds": torch.from_numpy(stub_embeds(
+                 rng, (SERVE_SLOTS, SEAMLESS_FRAMES, cfg.d_model))).to(device)}
+    prefill = make_prefill_step(cfg, SERVE_MAX_LEN, cross_len=SEAMLESS_FRAMES, device=device)
+    decode = make_decode_step(cfg)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    zero_counts()
+    t0 = time.perf_counter()
+    cache, logits = prefill(params, batch)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    at_prefill = read_counts()
+    finite = torch.isfinite(logits).all()
+    tokens = [logits[:, -1].argmax(-1, keepdim=True).int()]
+    t0 = time.perf_counter()
+    for _ in range(SEAMLESS_DECODE_STEPS):
+        cache, logits = decode(params, cache, tokens[-1])
+        finite &= torch.isfinite(logits).all()
+        tokens.append(logits[:, -1].argmax(-1, keepdim=True).int())
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = read_counts()
+
+    out = torch.cat(tokens, dim=1)
+    require(bool(finite), f"{phase}: non-finite logits")
+    require(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+            f"{phase}: a token outside the vocabulary")
+    require(int(cache["index"]) == SEAMLESS_PROMPT + SEAMLESS_DECODE_STEPS,
+            f"{phase}: the cache's index is {int(cache['index'])}")
+    check_counts(phase + " prefill", at_prefill, launches_per_step(cfg, False, prefill=True), 1)
+    check_counts(phase, {k: launches[k] - at_prefill[k] for k in launches},
+                 launches_per_step(cfg, train=False), SEAMLESS_DECODE_STEPS)
+
+    # How much of a decode step the card works, as in `phase_serve`.
+    box = {"cache": cache}
+
+    def one_step():
+        box["cache"], _ = decode(params, box["cache"], tokens[-1])
+
+    step_call_ms = time_ms(torch, one_step, iters=3, warmup=1)
+    step_device_ms, top, step_launches = profile_device_time(torch, one_step, iters=3)
+    generated = SERVE_SLOTS * SEAMLESS_DECODE_STEPS
+    emit(phase=phase, model=cfg.name, layers=cfg.n_layers, encoder_layers=cfg.n_encoder_layers,
+         d_model=cfg.d_model, params=sum(t.numel() for t in _leaves(params)),
+         dtype=cfg.compute_dtype, rows=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+         encoder_frames=SEAMLESS_FRAMES, prompt_tokens=SEAMLESS_PROMPT,
+         decode_steps=SEAMLESS_DECODE_STEPS, prefill_seconds=prefill_s,
+         decode_seconds=decode_s, generated_tokens=generated,
+         generated_tokens_per_s=generated / decode_s,
+         ms_per_step=decode_s / SEAMLESS_DECODE_STEPS * 1e3,
+         decode_step_device_ms=step_device_ms, decode_step_call_ms=step_call_ms,
+         device_idle_share=(None if step_device_ms is None
+                            else 1.0 - step_device_ms / step_call_ms),
+         decode_step_top_kernels=top, decode_step_kernel_launches=step_launches,
+         first_tokens=out[0, :8].tolist(), setup_seconds=setup_s, prefill_launches=at_prefill,
+         launches=launches, launches_per_step=launches_per_step(cfg, train=False),
+         cache_bytes=sum(t.numel() * t.element_size() for t in _leaves(cache)),
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         setup_peak_memory_bytes=setup_peak)
+    del params, cache, box, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def stub_embeds(rng, shape):
+    """Stub frontend embeddings (frames or patches) at the scale of the
+    token embeddings' init, d_model ** -0.5, fp32 on the host."""
+    return rng.standard_normal(shape, dtype="float32") * shape[-1] ** -0.5
+
+
+def grid_positions(batch, patches, n_text):
+    """(3, batch, patches + n_text) int32 M-RoPE ids as Qwen2-VL numbers an
+    image followed by text: patch i on a square grid of side s at t 0,
+    h i // s, w i % s; the text counts on from s on all three axes."""
+    import numpy as np
+    side = math.isqrt(patches)
+    require(side * side == patches, f"{patches} patches make no square grid")
+    i = np.arange(patches)
+    pos = np.zeros((3, batch, patches + n_text), np.int32)
+    pos[1, :, :patches], pos[2, :, :patches] = i // side, i % side
+    pos[:, :, patches:] = side + np.arange(n_text)
+    return pos
+
+
+class StubLM:
+    """`SyntheticLM`'s step-indexed token batches (``TRAIN_BATCH`` rows),
+    with the inputs that a config's stub frontend stands for, drawn from
+    (``seed``, step): ``frames`` frame embeddings (an encoder-decoder's
+    ``encoder_embeds``), or ``patches`` patch embeddings on a square grid
+    with `grid_positions` (a VLM's ``vision_embeds`` and ``positions``).
+    ``seq`` positions a row, the patches included."""
+
+    def __init__(self, cfg, seq, seed, frames=0, patches=0):
+        from repro_torch.data import DataConfig, SyntheticLM
+        self.tokens = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                             global_batch=TRAIN_BATCH, seq_len=seq - patches,
+                                             seed=seed))
+        self.d, self.seed, self.frames, self.patches = cfg.d_model, seed, frames, patches
+
+    def batch_at(self, step):
+        import numpy as np
+        batch = dict(self.tokens.batch_at(step))
+        rng = np.random.default_rng((self.seed, step))
+        if self.frames:
+            batch["encoder_embeds"] = stub_embeds(rng, (TRAIN_BATCH, self.frames, self.d))
+        if self.patches:
+            batch["vision_embeds"] = stub_embeds(rng, (TRAIN_BATCH, self.patches, self.d))
+            batch["positions"] = grid_positions(TRAIN_BATCH, self.patches,
+                                                batch["inputs"].shape[1])
+        return batch
+
+
+def train_batches(torch, data, device, n):
+    """The first ``n`` batches of ``data`` on the device."""
     return [{k: torch.from_numpy(v).to(device) for k, v in data.batch_at(i).items()}
             for i in range(n)]
 
 
-def phase_train(torch, device, cfg, steps, phase="train"):
-    """``cfg`` through `Trainer.run`: 2 x 4096 tokens a step, AdamW, block
-    remat, ``steps`` steps; finite losses and gradient norms, and each
-    kernel's launches equal to steps times its per-step count."""
+def phase_train(torch, device, cfg, steps, phase="train", data=None,
+                loss_chunk=TRAIN_LOSS_CHUNK):
+    """``cfg`` through `Trainer.run`: 2 x 4096 positions a step (``data``,
+    by default `SyntheticLM`'s tokens), AdamW, block remat, ``steps``
+    steps; finite losses and gradient norms, and each kernel's launches
+    equal to steps times its per-step count."""
     import statistics
-    from repro_torch.train import TrainerConfig, make_synthetic_trainer
+    from repro_torch.train import Trainer, TrainerConfig
 
-    tcfg = TrainerConfig(steps=steps, log_every=10 ** 9, loss_chunk=TRAIN_LOSS_CHUNK)
+    tcfg = TrainerConfig(steps=steps, log_every=10 ** 9, loss_chunk=loss_chunk)
+    data = data or StubLM(cfg, TRAIN_SEQ, tcfg.seed)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    trainer = make_synthetic_trainer(cfg, tcfg, TRAIN_BATCH, TRAIN_SEQ, device=device)
+    trainer = Trainer(cfg, tcfg, data, device=device)
     state, _ = trainer.init_or_restore()
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -960,7 +1181,8 @@ def phase_train(torch, device, cfg, steps, phase="train"):
 
     # How much of a step the card works: device time of one more step from
     # the profiler against the host-clock time of the same step.
-    batch = train_batches(torch, cfg, device, 1, TRAIN_SEQ, seed=7)[0]
+    batch = train_batches(torch, StubLM(cfg, TRAIN_SEQ, 7, data.frames, data.patches),
+                          device, 1)[0]
     box = {"state": state}
 
     def one_step():
@@ -978,7 +1200,8 @@ def phase_train(torch, device, cfg, steps, phase="train"):
     n_params = sum(t.numel() for t in _leaves(state["params"]))
     emit(phase=phase, model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
          params=n_params, dtype=cfg.compute_dtype, remat=cfg.remat, optimizer=cfg.optimizer,
-         batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, loss_chunk=TRAIN_LOSS_CHUNK, steps=steps,
+         batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, encoder_frames=data.frames,
+         patches=data.patches, loss_chunk=loss_chunk, steps=steps,
          per_step=[dict(step=r["step"], loss=r["loss"], grad_norm=r["grad_norm"],
                         seconds=r["dt_s"]) for r in log],
          seconds=seconds, median_step_seconds=step_s,
@@ -1072,6 +1295,22 @@ TRAIN_TOL = dict(loss_atol=1e-3, grad_norm_rtol=1e-2, grad_rel=5e-2, later_grad_
 # times the bf16 plain run's distance.  (Updates cannot be compared with an
 # fp32 run: bf16 parameters round a step of lr away.)
 #
+# The seamless and qwen2-vl cuts are held so too.  Softmax ignores what
+# adds the same score to every key of a query, so two kinds of leaf have a
+# gradient that nearly cancels: a K projection's bias (qwen2-vl's
+# qkv_bias; only RoPE's rotation keeps its gradient from 0) and the
+# cross-attention's K projection over a memory whose frames share a large
+# common part (seamless).  On seamless's 4 + 4 cut, after one AdamW step
+# the fp32 gradient of cross.wk.w is 150 times smaller than at the start,
+# and the bf16 plain run's lies 1.8-2.6 times its norm from it (the
+# kernels' 2.1-2.9; stub frames at unit and at d_model ** -0.5 scale), so
+# the kernels' run lies 1.40 from the plain run there, beside TRAIN_TOL's
+# 0.1.  qwen2-vl's K bias gradients lie 1.7 % (step 0) and 5.5 % (step 1)
+# from fp32 on both bf16 runs, but AdamW's first step moves each element
+# by the learning rate in its gradient's sign, and the two runs' K bias
+# updates lie 0.47 apart (TRAIN_TOL 0.25).  (This script's phases on an
+# NVIDIA H100 80GB HBM3, 700 W; PERF.md §6.)
+#
 # The xLSTM cut's bf16 runs cannot be held to an fp32 trajectory at all.
 # AdamW's first step moves every element by the learning rate in its
 # gradient's sign, the bf16 gradients of the mixers' small leaves are
@@ -1094,7 +1333,8 @@ def rel_err(torch, got, want):
     return diff / norm if norm > 0 else (0.0 if diff == 0 else math.inf)
 
 
-def train_twice(torch, cfg, device, seq, n_steps, fp32_ref=False, at_fp32_points=False):
+def train_twice(torch, cfg, device, seq, n_steps, fp32_ref=False, at_fp32_points=False,
+                frames=0, patches=0):
     """``n_steps`` train steps from one state, on the kernels and under
     `use_plain()` (and with ``fp32_ref``, under `use_plain()` in fp32 from
     the same parameters).  With ``at_fp32_points`` the fp32 run goes first,
@@ -1120,7 +1360,7 @@ def train_twice(torch, cfg, device, seq, n_steps, fp32_ref=False, at_fp32_points
     step_fn = make_train_step(cfg, Optimizer(opt.name, opt.init, update),
                               loss_chunk=TRAIN_LOSS_CHUNK)
     start = init_state(torch.Generator(device).manual_seed(0), cfg, opt, device=device)
-    batches = train_batches(torch, cfg, device, n_steps, seq, seed=1)
+    batches = train_batches(torch, StubLM(cfg, seq, 1, frames, patches), device, n_steps)
 
     def run(step=step_fn, begin=start):
         seen.clear()
@@ -1206,13 +1446,15 @@ def zero_scales(torch, tree):
             for k, v in tree.items()}
 
 
-def phase_train_vs_plain(torch, device, cfg4, phase="train_vs_plain"):
+def phase_train_vs_plain(torch, device, cfg4, phase="train_vs_plain", frames=0, patches=0):
     """Two train steps of a cut of the model from one state, on the kernels
     and under `use_plain()`: losses, gradient norms, every leaf's gradients
-    and update.  Two controls must fail the same check: no update at all,
-    and the gradients of the norms' scales zeroed."""
+    and update (2 x 2048 positions, and ``frames`` / ``patches`` of stub
+    embeddings, see `StubLM`).  Two controls must fail the same check: no
+    update at all, and the gradients of the norms' scales zeroed."""
     seq, n_steps = 2048, 2
-    start, runs, used = train_twice(torch, cfg4, device, seq, n_steps)
+    start, runs, used = train_twice(torch, cfg4, device, seq, n_steps, frames=frames,
+                                    patches=patches)
     check_counts(phase, used, launches_per_step(cfg4, train=True), n_steps)
     kern, plain = runs["kernel"], runs["plain"]
     got = compare_train(torch, start, kern, plain)
@@ -1221,8 +1463,9 @@ def phase_train_vs_plain(torch, device, cfg4, phase="train_vs_plain"):
                 "norm scales' gradients zeroed": compare_train(
                     torch, start, (kern[0], kern[1], no_dscale), plain)}
     emit(phase=phase, model=cfg4.name, layers=cfg4.n_layers, dtype=cfg4.compute_dtype,
-         batch=TRAIN_BATCH, seq_len=seq, steps=n_steps, kernel=kern[1], plain=plain[1],
-         measures=got, tol=TRAIN_TOL,
+         batch=TRAIN_BATCH, seq_len=seq, encoder_layers=cfg4.n_encoder_layers,
+         encoder_frames=frames, patches=patches, steps=n_steps, kernel=kern[1],
+         plain=plain[1], measures=got, tol=TRAIN_TOL,
          controls={name: dict(m, fails=not train_agrees(m)) for name, m in controls.items()},
          launches=used)
     require(train_agrees(got), f"{phase}: the kernels' run is off: {got}")
@@ -1232,17 +1475,20 @@ def phase_train_vs_plain(torch, device, cfg4, phase="train_vs_plain"):
     torch.cuda.empty_cache()
 
 
-def phase_train_vs_fp32(torch, device, cfg4, phase, at_fp32_points=False):
+def phase_train_vs_fp32(torch, device, cfg4, phase, at_fp32_points=False, frames=0,
+                        patches=0):
     """Two bf16 train steps of a cut of the model, on the kernels and under
     `use_plain()`, each against the same steps in fp32 (see the note at
     TRAIN_TOL).  With ``at_fp32_points`` (see `FP32_POINTS_CUTS`) the bf16
     runs take each step from the fp32 run's parameters, and the loss and
     gradient norm are held like the gradients: within TRAIN_TOL, or within
     FP32_REF_MARGIN times the plain run's distance where that is larger.  A
-    control must fail: the gradients of the norms' scales zeroed."""
+    control must fail: the gradients of the norms' scales zeroed.
+    ``frames`` / ``patches``: stub embeddings, as `phase_train_vs_plain`."""
     seq, n_steps = 2048, 2
     start, runs, used = train_twice(torch, cfg4, device, seq, n_steps, fp32_ref=True,
-                                    at_fp32_points=at_fp32_points)
+                                    at_fp32_points=at_fp32_points, frames=frames,
+                                    patches=patches)
     check_counts(phase, used, launches_per_step(cfg4, train=True), n_steps)
     kern, plain, ref = runs["kernel"], runs["plain"], runs["fp32"]
     k, p = compare_train(torch, start, kern, ref), compare_train(torch, start, plain, ref)
@@ -1258,8 +1504,9 @@ def phase_train_vs_fp32(torch, device, cfg4, phase, at_fp32_points=False):
     no_dscale = [zero_scales(torch, grads) for grads in kern[2]]
     control = compare_train(torch, start, (kern[0], kern[1], no_dscale), ref)
     emit(phase=phase, model=cfg4.name, layers=cfg4.n_layers, dtype=cfg4.compute_dtype,
-         batch=TRAIN_BATCH, seq_len=seq, steps=n_steps, kernel=kern[1], plain=plain[1],
-         fp32=ref[1], kernel_vs_fp32=k, plain_vs_fp32=p,
+         batch=TRAIN_BATCH, seq_len=seq, encoder_frames=frames, patches=patches,
+         steps=n_steps, kernel=kern[1], plain=plain[1], fp32=ref[1], kernel_vs_fp32=k,
+         plain_vs_fp32=p,
          kernel_vs_plain=compare_train(torch, start, kern, plain), fp32_margin=FP32_REF_MARGIN,
          at_fp32_points=at_fp32_points, loss_tol=loss_tol, grad_norm_tol=norm_tol,
          control_norm_scales_gradients_zeroed=dict(control, fails=not agrees(control)),
@@ -1277,8 +1524,9 @@ def _leaves(tree):
 
 def phase_timing(torch, device, launches, resources):
     """Times of the kernels at their paths' shapes (serving for rms_norm and
-    decode_attention, training for flash_attention and ssm_scan; zamba2's
-    d_head 112 beside granite's 64 for the attention kernels), beside their
+    decode_attention, training for flash_attention and ssm_scan; the other
+    configs' heads beside granite's for the attention kernels, and
+    seamless's non-causal encoder and cross-attention), beside their
     plain versions, one library call each where there is one, and the
     card's bound.  ``launches`` holds each path's counts by phase name;
     ``resources`` the build's registers, spills and HMMA counts by kernel
@@ -1358,7 +1606,12 @@ def phase_timing(torch, device, launches, resources):
                             "(is_causal, enable_gqa)",
                     **flash_times(torch, timer, device, FLASH_TRAIN, resources),
                     zamba2_d112=flash_times(torch, timer, device, FLASH_ZAMBA, resources),
-                    dbrx_d128=flash_times(torch, timer, device, FLASH_DBRX, resources)))
+                    dbrx_d128=flash_times(torch, timer, device, FLASH_DBRX, resources),
+                    qwen2vl_g6_d128=flash_times(torch, timer, device, FLASH_QWEN2VL, resources),
+                    seamless_cross=flash_times(torch, timer, device, FLASH_SEAMLESS_CROSS,
+                                               resources, causal=False),
+                    seamless_encoder=flash_times(torch, timer, device, FLASH_SEAMLESS_ENCODER,
+                                                 resources, causal=False)))
     torch.cuda.empty_cache()
 
     counts = by_path("ssm_scan")
@@ -1376,7 +1629,9 @@ DECODE_TIMED = [("granite_g4_d64", (SERVE_SLOTS, SERVE_MAX_LEN, 32, 8, 64)),
                 ("zamba2_d112", (SERVE_SLOTS, SERVE_MAX_LEN, 32, 32, 112)),
                 ("dbrx_g6_d128", (SERVE_SLOTS, SERVE_MAX_LEN, 48, 8, 128)),
                 ("qwen1_5_110b_g8_d128", (SERVE_SLOTS, SERVE_MAX_LEN, 64, 8, 128)),
-                ("kimi_k2_g8_d112", (SERVE_SLOTS, SERVE_MAX_LEN, 64, 8, 112))]
+                ("kimi_k2_g8_d112", (SERVE_SLOTS, SERVE_MAX_LEN, 64, 8, 112)),
+                ("qwen2vl_g6_d128", (SERVE_SLOTS, SERVE_MAX_LEN, 12, 2, 128)),
+                ("seamless_d64", (SERVE_SLOTS, SERVE_MAX_LEN, 16, 16, 64))]
 # The lengths the serve phase reaches: 499 valid keys over the 8 slots.
 SERVED_LENS = [17, 33, 48, 64, 70, 81, 90, 96]
 TIMING_REPEATS = 3
@@ -1543,30 +1798,31 @@ def instance(resources, name):
     return dict(instance=name, **resources.get(name, {}))
 
 
-def flash_times(torch, timer, device, case, resources):
-    """flash_attention at a train phase's shape, causal, bf16; SDPA beside."""
+def flash_times(torch, timer, device, case, resources, causal=True):
+    """flash_attention at a path's shape, bf16 (causal: Sq = Sk); SDPA beside."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
     dtype, dt = torch.bfloat16, "bfloat16"
-    _, B, S, _, Hq, Hkv, D = case
-    q = rand(torch, (B, S, Hq, D), dtype, 41, device)
-    k = rand(torch, (B, S, Hkv, D), dtype, 42, device)
-    v = rand(torch, (B, S, Hkv, D), dtype, 43, device)
-    err, ratio, _, lratio = flash_errors(torch, flash_attention(q, k, v, True),
-                                         flash_attention_plain(q, k, v, True), dt)
+    _, B, Sq, Sk, Hq, Hkv, D = case
+    q = rand(torch, (B, Sq, Hq, D), dtype, 41, device)
+    k = rand(torch, (B, Sk, Hkv, D), dtype, 42, device)
+    v = rand(torch, (B, Sk, Hkv, D), dtype, 43, device)
+    err, ratio, _, lratio = flash_errors(torch, flash_attention(q, k, v, causal),
+                                         flash_attention_plain(q, k, v, causal), dt)
     require(ratio <= 1.0 and lratio <= 1.0,
             f"timing: flash_attention {case[0]} error {err} beyond tolerance")
     sdpa_gqa = "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or "")
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    ms, call = timer(lambda: flash_attention(q, k, v, True), iters=20)
-    plain, plain_call = timer(lambda: flash_attention_plain(q, k, v, True), iters=3)
+    ms, call = timer(lambda: flash_attention(q, k, v, causal), iters=20)
+    plain, plain_call = timer(lambda: flash_attention_plain(q, k, v, causal), iters=3)
     lib, lib_call = (timer(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, enable_gqa=True), iters=20) if sdpa_gqa else (None, None))
-    ms2, call2 = timer(lambda: flash_attention(q, k, v, True), iters=20)
-    pairs = B * S * (S + 1) // 2                     # (query, key) pairs under the mask
+        qt, kt, vt, is_causal=causal, enable_gqa=True), iters=20) if sdpa_gqa else (None, None))
+    ms2, call2 = timer(lambda: flash_attention(q, k, v, causal), iters=20)
+    # (query, key) pairs under the mask
+    pairs = B * Sq * (Sq + 1) // 2 if causal else B * Sq * Sk
     flops = 4 * pairs * Hq * D                       # q.k and p.v, a multiply-add each
     # q, k, v read once; out (q's size) and the fp32 lse written once.
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + B * Hq * S * 4
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + B * Hq * Sq * 4
     b_ms, b_by = bound(nbytes, flops, dt)
     best = min(ms, ms2)
     name = f"flash_fwd_bf16_kernel<{D}, false>"     # the training shapes' D are exact instances
@@ -1575,7 +1831,8 @@ def flash_times(torch, timer, device, case, resources):
                 plain_call_ms=plain_call, library_call_ms=lib_call, bytes=nbytes, flops=flops,
                 achieved_tflops=flops / (best * 1e-3) / 1e12,
                 achieved_gb_per_s=nbytes / (best * 1e-3) / 1e9,
-                shape=[B, S, Hq, Hkv, D], dtype=dt, causal=True, **instance(resources, name))
+                shape=[B, Sq, Sk, Hq, Hkv, D], dtype=dt, causal=causal,
+                **instance(resources, name))
 
 
 def ssm_times(torch, timer, device, case, resources):
@@ -1682,25 +1939,99 @@ def mlstm_update_skipped(cfg):
         xlstm.mlstm_recurrence = inner
 
 
-def phase_path_vs_plain(torch, device, cfg4, params4, phase="path_vs_plain", elementwise=True):
-    """16 decode steps of a cut of the model through the engine, on the
-    kernels, under `use_plain()`, and under `use_plain()` in fp32: logits
-    and greedy tokens.  ``elementwise`` also holds the kernels' logits to
-    the bf16 plain run's elementwise.  A control that must fail: the plain
-    run with the newest key of every decode attention dropped, or, for a
-    stack without attention (xLSTM), with one decode step's update of
-    every mLSTM layer's C skipped."""
+PATH_STEPS = 16                # decode steps of each path_vs_plain run
+
+
+def prefill_then_decode(torch, cfg, params, device, batch, cross_len=0, zero_cross=False):
+    """``batch`` (on the device) through `make_prefill_step` (max_len
+    SERVE_MAX_LEN, ``cross_len``), then `PATH_STEPS` decode steps fed the
+    same tokens in every run (drawn from seed 2), so that runs compare
+    step by step: the prefill's last logits and each step's, (PATH_STEPS +
+    1, rows, vocab) fp32.  ``zero_cross``: every cross cache is zeroed
+    after the prefill (a control)."""
+    import numpy as np
+    from repro_torch._tree import tree_items
+    from repro_torch.serve import make_decode_step, make_prefill_step
+    cache, logits = make_prefill_step(cfg, SERVE_MAX_LEN, cross_len=cross_len,
+                                      device=device)(params, batch)
+    if zero_cross:
+        for path, t in tree_items(cache):
+            if ".cross." in path:
+                t.zero_()
+    out, decode = [logits[:, -1]], make_decode_step(cfg)
+    feed = np.random.default_rng(2).integers(1, cfg.vocab_size, size=(
+        PATH_STEPS, batch["tokens"].shape[0], 1)).astype(np.int32)
+    for tokens in feed:
+        cache, logits = decode(params, cache, torch.from_numpy(tokens).to(device))
+        out.append(logits[:, -1])
+    torch.cuda.synchronize()
+    logits = torch.stack(out).float()
+    require(bool(torch.isfinite(logits).all()), f"{cfg.name}: non-finite logits")
+    return logits
+
+
+def prefilled_runs(torch, cfg4, device):
+    """For a cut that is prefilled (seamless's 4 + 4 layers: SERVE_SLOTS
+    rows of SEAMLESS_FRAMES frames and a SEAMLESS_PROMPT-token prompt;
+    qwen2-vl's: QWEN_PATCHES patches on their grid and a QWEN_CUT_PROMPT-
+    token prompt), `phase_path_vs_plain`'s ``steps`` and ``control``.  The
+    controls: the cross caches zeroed after the prefill; the patches given
+    one id on all three axes (text's numbering)."""
+    import numpy as np
+    rng = np.random.default_rng(1)
+    on = lambda a: torch.from_numpy(a).to(device)
+    if cfg4.n_encoder_layers:
+        batch = {"tokens": on(rng.integers(1, cfg4.vocab_size, size=(
+                     SERVE_SLOTS, SEAMLESS_PROMPT)).astype(np.int32)),
+                 "encoder_embeds": on(stub_embeds(rng, (SERVE_SLOTS, SEAMLESS_FRAMES,
+                                                        cfg4.d_model)))}
+        run = lambda zero: lambda cfg, params: prefill_then_decode(
+            torch, cfg, params, device, batch, SEAMLESS_FRAMES, zero_cross=zero)
+        return run(False), ("cross_cache_zeroed_after_prefill", run(True))
+    n = QWEN_PATCHES + QWEN_CUT_PROMPT
+    batch = {"tokens": on(rng.integers(1, cfg4.vocab_size, size=(
+                 SERVE_SLOTS, QWEN_CUT_PROMPT)).astype(np.int32)),
+             "vision_embeds": on(stub_embeds(rng, (SERVE_SLOTS, QWEN_PATCHES, cfg4.d_model))),
+             "positions": on(grid_positions(SERVE_SLOTS, QWEN_PATCHES, QWEN_CUT_PROMPT))}
+    flat = dict(batch, positions=on(np.broadcast_to(np.arange(n, dtype=np.int32),
+                                                    (3, SERVE_SLOTS, n)).copy()))
+    run = lambda b: lambda cfg, params: prefill_then_decode(torch, cfg, params, device, b)
+    return run(batch), ("patches_on_one_id_for_all_three_axes", run(flat))
+
+
+def phase_path_vs_plain(torch, device, cfg4, params4, phase="path_vs_plain", elementwise=True,
+                        steps=None, control=None):
+    """`PATH_STEPS` decode steps of a cut of the model through the engine
+    (or ``steps(cfg, params)``, a prefill and decode steps: then the
+    prefill's logits too), on the kernels, under `use_plain()`, and under
+    `use_plain()` in fp32: logits and greedy tokens.  ``elementwise`` also
+    holds the kernels' logits to the bf16 plain run's elementwise.  A
+    control that must fail: the plain run with the newest key of every
+    decode attention dropped, or, for a stack without attention (xLSTM),
+    with one decode step's update of every mLSTM layer's C skipped, or
+    ``control`` = (its name, its ``steps``)."""
     from repro_torch._tree import tree_map
     from repro_torch.kernels import ops
 
-    n_steps = 16
-    if any(kind in ("attn", "moe") for kind in cfg4.layer_pattern()) or cfg4.shared_attn_every:
+    n_steps = PATH_STEPS
+    per_step = launches_per_step(cfg4, train=False)
+    expected = {name: n_steps * n for name, n in per_step.items()}
+    if steps is None:
+        steps = lambda cfg, params: run_engine_steps(
+            torch, cfg, params, device, n_steps,
+            draw_requests(SERVE_SLOTS, cfg4.vocab_size, seed=1)).float()
+    else:                                    # and one prefill
+        expected = {name: n + launches_per_step(cfg4, False, prefill=True)[name]
+                    for name, n in expected.items()}
+    if control is not None:
+        control_name, control_steps = control
+        control_ctx = contextlib.nullcontext()
+    elif any(kind in ("attn", "moe") for kind in cfg4.layer_pattern()) or cfg4.shared_attn_every:
         control_name, control_ctx = "newest_key_dropped", newest_key_dropped(torch)
+        control_steps = steps
     else:
         control_name, control_ctx = "mlstm_C_update_skipped", mlstm_update_skipped(cfg4)
-    steps = lambda cfg, params: run_engine_steps(
-        torch, cfg, params, device, n_steps,
-        draw_requests(SERVE_SLOTS, cfg4.vocab_size, seed=1)).float()
+        control_steps = steps
     zero_counts()
     kern = steps(cfg4, params4)
     used = read_counts()
@@ -1710,9 +2041,9 @@ def phase_path_vs_plain(torch, device, cfg4, params4, phase="path_vs_plain", ele
         ref = steps(cfg32, tree_map(lambda t: t.float() if t.is_floating_point() else t,
                                     params4))
         with control_ctx:
-            control = steps(cfg4, params4)
+            control = control_steps(cfg4, params4)
     require(read_counts() == used, f"{phase}: use_plain() still launched a kernel")
-    check_counts(phase, used, launches_per_step(cfg4, train=False), n_steps)
+    require(used == expected, f"{phase}: launches {used}, expected {expected}")
     err, ratio = errors(torch, kern, plain, "bfloat16")
 
     def against_ref(run):
@@ -2184,7 +2515,7 @@ def main(argv=None):
     unknown = sorted(set(only) - set(PHASES))
     if unknown:
         ap.error(f"unknown phases {unknown}")
-    run = lambda p: not only or p in only
+    run = lambda p: p in PHASES and (not only or p in only)
 
     import torch
     if not torch.cuda.is_available():
@@ -2198,11 +2529,14 @@ def main(argv=None):
     smi_line = phase_device(torch)
     granite, zamba = get_config("granite-3-2b"), get_config("zamba2-7b")
     dbrx, xlstm = get_config("dbrx-132b"), get_config("xlstm-1.3b")
+    seamless, qwen = get_config("seamless-m4t-large-v2"), get_config("qwen2-vl-2b")
 
     def cut(cfg, n):
-        """``cfg``'s first ``n`` layers (and its layer pattern's)."""
+        """``cfg``'s first ``n`` layers (and its layer pattern's), and as many
+        of an encoder-decoder's encoder layers."""
         pattern = cfg.block_pattern and cfg.block_pattern[:n]
-        return dataclasses.replace(cfg, n_layers=n, block_pattern=pattern)
+        return dataclasses.replace(cfg, n_layers=n, block_pattern=pattern,
+                                   n_encoder_layers=min(cfg.n_encoder_layers, n))
 
     # Each path's launches, read just after it ran with every count at 0.
     paths = {"serve": (granite, False), "train": (granite, True),
@@ -2212,6 +2546,8 @@ def main(argv=None):
              "train_dbrx": (cut(dbrx, DBRX_TRAIN_LAYERS), True),
              "serve_xlstm": (xlstm, False),
              "train_xlstm": (cut(xlstm, XLSTM_TRAIN_LAYERS), True),
+             "serve_seamless": (seamless, False), "train_seamless": (seamless, True),
+             "serve_qwen2vl": (qwen, False), "train_qwen2vl": (qwen, True),
              "relocate_train": (cut(granite, RELOCATE_LAYERS), True)}
     launches = {path: {} for path in paths}
     seconds = {}
@@ -2230,6 +2566,10 @@ def main(argv=None):
             require(launches_per_step(cfg, train) == MAIN_PATH_COUNTS[path],
                     f"{path}: launches a step {launches_per_step(cfg, train)}, "
                     f"expected {MAIN_PATH_COUNTS[path]}")
+        require(launches_per_step(seamless, False, prefill=True)
+                == MAIN_PATH_COUNTS["serve_seamless_prefill"],
+                f"serve_seamless: the prefill's launches "
+                f"{launches_per_step(seamless, False, prefill=True)}")
         resources = {}
         if run("build"):
             resources = timed("build", phase_build, args.verbose_build)
@@ -2262,6 +2602,22 @@ def main(argv=None):
             launches["train_xlstm"] = timed("train_xlstm", phase_train, torch, device,
                                             paths["train_xlstm"][0], XLSTM_TRAIN_STEPS,
                                             "train_xlstm")
+        if run("serve_seamless"):
+            launches["serve_seamless"] = timed("serve_seamless", phase_serve_encdec, torch,
+                                               device, seamless)
+        if run("train_seamless"):
+            launches["train_seamless"] = timed(
+                "train_seamless", phase_train, torch, device, seamless, SEAMLESS_TRAIN_STEPS,
+                "train_seamless", data=StubLM(seamless, TRAIN_SEQ, 0,
+                                              frames=SEAMLESS_TRAIN_FRAMES))
+        if run("serve_qwen2vl"):
+            launches["serve_qwen2vl"] = timed("serve_qwen2vl", phase_serve, torch, device, qwen,
+                                              QWEN_REQUESTS, "serve_qwen2vl")
+        if run("train_qwen2vl"):
+            launches["train_qwen2vl"] = timed(
+                "train_qwen2vl", phase_train, torch, device, qwen, QWEN_TRAIN_STEPS,
+                "train_qwen2vl", data=StubLM(qwen, TRAIN_SEQ, 0, patches=QWEN_PATCHES),
+                loss_chunk=QWEN_LOSS_CHUNK)
         if run("relocate_train"):
             launches["relocate_train"] = timed("relocate_train", phase_relocate_train, torch,
                                                device, paths["relocate_train"][0])
@@ -2273,8 +2629,12 @@ def main(argv=None):
                     for name, n in launches_per_step(cfg, train).items():
                         require(n == 0 or launches[path][name] > 0,
                                 f"{name} was not launched by the {path} path")
-        cuts = [("", cut(granite, 4)), ("_zamba2", cut(zamba, ZAMBA_CUT_LAYERS)),
-                ("_dbrx", cut(dbrx, DBRX_CUT_LAYERS)), ("_xlstm", cut(xlstm, XLSTM_CUT_LAYERS))]
+        cuts = [("", cut(granite, CUT_LAYERS)), ("_zamba2", cut(zamba, ZAMBA_CUT_LAYERS)),
+                ("_dbrx", cut(dbrx, DBRX_CUT_LAYERS)), ("_xlstm", cut(xlstm, XLSTM_CUT_LAYERS)),
+                ("_seamless", cut(seamless, CUT_LAYERS)), ("_qwen2vl", cut(qwen, CUT_LAYERS))]
+        # The stub inputs of the prefilled cuts' train_vs_plain.
+        train_stubs = {"_seamless": dict(frames=SEAMLESS_CUT_FRAMES),
+                       "_qwen2vl": dict(patches=QWEN_PATCHES)}
         for suffix, cfg in cuts:
             recurrent, moe = carries_state(cfg), "moe" in cfg.layer_pattern()
             if run("path_vs_plain" + suffix) or run("migrate" + suffix):
@@ -2284,22 +2644,27 @@ def main(argv=None):
                         timed("path_vs_plain" + suffix, phase_path_vs_plain_moe, torch, device,
                               cfg, params, "path_vs_plain" + suffix)
                     else:
+                        steps, control = (prefilled_runs(torch, cfg, device)
+                                          if suffix in train_stubs else (None, None))
                         timed("path_vs_plain" + suffix, phase_path_vs_plain, torch, device,
-                              cfg, params, "path_vs_plain" + suffix, elementwise=not recurrent)
+                              cfg, params, "path_vs_plain" + suffix, elementwise=not recurrent,
+                              steps=steps, control=control)
                 if run("migrate" + suffix):
                     timed("migrate" + suffix, phase_migrate_moe if moe else phase_migrate,
                           torch, device, cfg, params, "migrate" + suffix)
                 del params
                 torch.cuda.empty_cache()
-            if not moe and recurrent and run("train_vs_fp32" + suffix):
+            noisy = bf16_gradients_are_noise(cfg)
+            if not moe and noisy and run("train_vs_fp32" + suffix):
                 timed("train_vs_fp32" + suffix, phase_train_vs_fp32, torch, device, cfg,
-                      "train_vs_fp32" + suffix, at_fp32_points=suffix in FP32_POINTS_CUTS)
+                      "train_vs_fp32" + suffix, at_fp32_points=suffix in FP32_POINTS_CUTS,
+                      **train_stubs.get(suffix, {}))
             if not moe and run("train_vs_plain" + suffix):
-                if recurrent:
+                if noisy:
                     cfg = dataclasses.replace(cfg, compute_dtype="float32",
                                               param_dtype="float32")
                 timed("train_vs_plain" + suffix, phase_train_vs_plain, torch, device, cfg,
-                      "train_vs_plain" + suffix)
+                      "train_vs_plain" + suffix, **train_stubs.get(suffix, {}))
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

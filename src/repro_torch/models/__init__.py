@@ -1,5 +1,5 @@
-"""Model substrate of the torch port: the dense GQA, MoE and Mamba2 hybrid
-decoders, for serving and training."""
+"""Model substrate of the torch port: every architecture family of the
+reference, for serving and training."""
 
 from .config import (  # noqa: F401
     ALL_SHAPES,
@@ -14,6 +14,7 @@ from .config import (  # noqa: F401
 )
 from .transformer import (  # noqa: F401
     DecoderLM,
+    encode,
     forward,
     init_cache,
     init_lm,

@@ -1,29 +1,28 @@
-"""Grouped-query self-attention with RoPE and a KV cache.
+"""Grouped-query attention with RoPE / M-RoPE, a KV cache, and
+cross-attention.
 
 `gqa_reference` is the plain implementation (fp32 softmax).  Two paths go
 through hand-written CUDA kernels when the tensors lie on the card:
 
 * single-token decode against the cache: `repro_torch.kernels.ops
   .decode_attention`;
-* the full-sequence causal self-attention of training (no cache):
-  `flash_attention_jnp`, an autograd Function whose forward is
+* full-sequence attention of training, the encoder and prefill without a
+  cache: `flash_attention_jnp`, an autograd Function whose forward is
   `repro_torch.kernels.ops.flash_attention` and whose backward is the port
   of the reference's `_flash_bwd_rule` (recomputes each block's
   probabilities from the saved log-sum-exp).
 
-The full-sequence causal path is `flash_attention_jnp` on either device:
-on a CPU tensor its forward is the plain online softmax `_flash_fwd_math`,
-so the CPU tests run the card's route at any length.  Prefill into a cache
-and non-causal attention stay on `_self_attention_math`, which routes as
-the reference's ``attn_impl="ref"`` does: `gqa_reference` below
+The full-sequence causal self-attention is `flash_attention_jnp` on either
+device: on a CPU tensor its forward is the plain online softmax
+`_flash_fwd_math`, so the CPU tests run the card's route at any length.
+Prefill into a cache, non-causal attention (the encoder's) and
+cross-attention stay on `_self_attention_math`, which routes as the
+reference's ``attn_impl="ref"`` does: `gqa_reference` below
 `CHUNKED_ATTN_THRESHOLD`, `flash_attention_jnp` or `chunked_attention`
 above it.
 
 The cache is written IN PLACE: `attention` returns the same ``k``/``v``
 tensors it was given, updated (the reference returns fresh arrays).
-
-Still to port from `repro.models.attention`: cross-attention
-(``kv_input``) and M-RoPE (ROADMAP Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -33,7 +32,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from .config import ModelConfig
-from .layers import apply_linear, apply_rope, dtype_of, init_linear
+from .layers import apply_linear, apply_mrope, apply_rope, apply_rope_tables, dtype_of, init_linear
 
 NEG_INF = -1e30
 
@@ -64,11 +63,11 @@ def _split_heads(x, n_heads, d_head):
 
 def _rope(cfg: ModelConfig, x, positions, rope_cache=None):
     if rope_cache is not None:
-        raise NotImplementedError("hoisted RoPE tables: ROADMAP Queue 1 item 2")
+        return apply_rope_tables(x, rope_cache)
     if positions is None:
         return x
     if cfg.mrope:
-        raise NotImplementedError("M-RoPE: ROADMAP Queue 1 item 13")
+        return apply_mrope(x, positions, cfg.rope_theta, cfg.mrope_sections)
     return apply_rope(x, positions, cfg.rope_theta)
 
 
@@ -326,16 +325,16 @@ def attention(
     params: Dict,
     x: torch.Tensor,                      # (B, S, d)
     cfg: ModelConfig,
-    positions: Optional[torch.Tensor],    # (B, S)
+    positions: Optional[torch.Tensor],    # (B, S), or (3, B, S) under M-RoPE
     *,
     causal: bool = True,
-    kv_input: Optional[torch.Tensor] = None,
+    kv_input: Optional[torch.Tensor] = None,   # cross-attention memory (B, Sk, d)
     cache: Optional[Dict] = None,
     cache_index=None,                     # 0-d or (B,) int32 write offset
     impl: Optional[str] = None,
     rope_cache=None,
 ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Self-attention with optional KV cache.
+    """Self- or cross-attention with optional KV cache.
 
     Modes:
       * train/prefill: ``cache=None``, full-sequence causal, through
@@ -343,19 +342,21 @@ def attention(
       * decode / prefill-into-cache: ``cache`` + ``cache_index`` given: write
         this step's k/v at ``cache_index`` (in place) and attend over the
         valid prefix.  With S == 1 this is `kernels.ops.decode_attention`.
+      * cross: ``kv_input`` given: k/v from the memory, no RoPE, no causal
+        mask (`_self_attention_math`).
 
     ``impl`` / ``cfg.attn_impl`` are accepted for parity with the reference
     and not consulted: the kernel is chosen by the tensor's device.
     """
-    if kv_input is not None:
-        raise NotImplementedError("cross-attention: ROADMAP Queue 1 item 13")
     cd = dtype_of(cfg.compute_dtype)
     B, S, _ = x.shape
+    kv_src = x if kv_input is None else kv_input
     q = _split_heads(apply_linear(params["wq"], x, cd), cfg.n_heads, cfg.d_head)
-    k = _split_heads(apply_linear(params["wk"], x, cd), cfg.n_kv_heads, cfg.d_head)
-    v = _split_heads(apply_linear(params["wv"], x, cd), cfg.n_kv_heads, cfg.d_head)
-    q = _rope(cfg, q, positions, rope_cache)
-    k = _rope(cfg, k, positions, rope_cache)
+    k = _split_heads(apply_linear(params["wk"], kv_src, cd), cfg.n_kv_heads, cfg.d_head)
+    v = _split_heads(apply_linear(params["wv"], kv_src, cd), cfg.n_kv_heads, cfg.d_head)
+    if kv_input is None:  # RoPE only applies to self-attention
+        q = _rope(cfg, q, positions, rope_cache)
+        k = _rope(cfg, k, positions, rope_cache)
 
     new_cache = None
     if cache is not None:
@@ -374,14 +375,14 @@ def attention(
             # Prefill-into-cache: causal with absolute offset.
             out = _self_attention_math(q, k_cache, v_cache, causal=True,
                                        q_offset=idx, kv_len=kv_len)
-    elif causal:
+    elif causal and kv_input is None:
         # Training / full-sequence: `flash_attention_jnp` on either device
         # (its forward is the CUDA kernel on the card), chunks of at most
         # _Q_CHUNK for the backward (a ragged last chunk is masked).
         chunk = min(_Q_CHUNK, S)
         out = flash_attention_jnp(q, k, v, True, chunk, chunk)
     else:
-        out = _self_attention_math(q, k, v, causal=causal)
+        out = _self_attention_math(q, k, v, causal=False)
 
     out = out.reshape(B, S, cfg.n_heads * cfg.d_head)
     return apply_linear(params["wo"], out, cd), new_cache

@@ -1,12 +1,10 @@
-"""Base layers: RMSNorm, embeddings, RoPE, linear init.
+"""Base layers: norms, embeddings, RoPE / M-RoPE, linear init.
 
 Plain functions on tensors; ``init_*`` builds nested dicts of tensors whose
 leaf names equal the reference's (`repro.models.layers`), ``w`` stored
 ``(d_in, d_out)``.  Random draws take an explicit ``torch.Generator``.
-
-Still to port from the reference module: `layer_norm`, M-RoPE and
-`rope_tables`.  The gelu and squared-ReLU activations live beside their one
-user, in `ffn.py`.
+The gelu and squared-ReLU activations live beside their one user, in
+`ffn.py`.  `layer_norm` is on no model path, as in the reference.
 """
 
 from __future__ import annotations
@@ -99,6 +97,20 @@ def rms_norm(x, scale, eps: float):
     return (out * scale.float()).to(x.dtype)
 
 
+def init_layernorm(d: int, dtype, device="cuda"):
+    return {"scale": torch.ones((d,), dtype=dtype, device=device),
+            "bias": torch.zeros((d,), dtype=dtype, device=device)}
+
+
+def layer_norm(x, scale, bias, eps: float):
+    """LayerNorm in fp32 math (biased variance), output in x's type."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * scale.float() + bias.float()).to(x.dtype)
+
+
 def fused_rms_norm(x, scale, eps: float):
     """What the model calls: the hand-written kernel for a CUDA tensor, the
     plain `rms_norm` for a CPU tensor (see `repro_torch.kernels.ops`)."""
@@ -137,22 +149,70 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     rotation: element i pairs with element i + Dh/2."""
     freqs = rope_freqs(x.shape[-1], theta, x.device)           # (Dh/2,)
     angles = positions[..., None].float() * freqs              # (..., S, Dh/2)
-    cos = torch.cos(angles)[..., None, :]                      # (..., S, 1, Dh/2)
-    sin = torch.sin(angles)[..., None, :]
+    return _rotate(x, torch.cos(angles), torch.sin(angles))
+
+
+def _rotate(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Split-half rotation of x (..., S, H, Dh) by (..., S, Dh/2) tables."""
+    cos, sin = cos[..., None, :], sin[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
 
 
+def _mrope_angles(positions_thw: torch.Tensor, freqs: torch.Tensor, sections) -> torch.Tensor:
+    """(3, ..., S) position ids -> (..., S, Dh/2) angles: the frequency slots
+    fall into consecutive (temporal, height, width) sections, each rotated by
+    its own axis's id.  Sliced with Python ints, so no index tensor is made
+    on the device (which would wait for it) in every layer."""
+    parts, start = [], 0
+    for axis, n in enumerate(sections):
+        parts.append(positions_thw[axis][..., None].float() * freqs[start:start + n])
+        start += n
+    return torch.cat(parts, dim=-1)
+
+
+def apply_mrope(x: torch.Tensor, positions_thw: torch.Tensor, theta: float,
+                sections) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: the Dh/2 frequency slots are partitioned into
+    (temporal, height, width) sections, each rotated by its own position id
+    (``positions_thw``: (3, ..., S)).  Text tokens use identical t/h/w ids,
+    recovering standard RoPE."""
+    d_head = x.shape[-1]
+    if sum(sections) != d_head // 2:
+        raise ValueError(f"mrope sections {sections} must sum to d_head/2={d_head // 2}")
+    angles = _mrope_angles(positions_thw, rope_freqs(d_head, theta, x.device), sections)
+    return _rotate(x, torch.cos(angles), torch.sin(angles))
+
+
+def rope_tables(cfg: ModelConfig, positions: torch.Tensor):
+    """(cos, sin) rotation tables, (B, S, Dh/2) fp32, computed once a forward
+    for every layer (``cfg.hoist_rope``); ``positions`` is (B, S), or
+    (3, B, S) under M-RoPE."""
+    freqs = rope_freqs(cfg.d_head, cfg.rope_theta, positions.device)
+    if cfg.mrope:
+        angles = _mrope_angles(positions, freqs, cfg.mrope_sections)
+    else:
+        angles = positions[..., None].float() * freqs
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope_tables(x: torch.Tensor, tables) -> torch.Tensor:
+    """x: (B, S, H, Dh); tables from `rope_tables`."""
+    return _rotate(x, *tables)
+
+
 def positions_for(cfg: ModelConfig, batch: int, seq: int, offset=0,
                   device=None) -> torch.Tensor:
-    """(batch, seq) int32 positions; ``offset`` is an int, a 0-d tensor or a
-    per-row ``(batch,)`` tensor."""
-    if cfg.mrope:
-        raise NotImplementedError("M-RoPE positions: ROADMAP Queue 1 item 13")
+    """(batch, seq) int32 positions, or (3, batch, seq) under M-RoPE with the
+    same id on all three axes (text); ``offset`` is an int, a 0-d tensor or
+    a per-row ``(batch,)`` tensor."""
     if isinstance(offset, torch.Tensor) and device is None:
         device = offset.device
     off = torch.as_tensor(offset, device=device)
     pos = torch.arange(seq, dtype=torch.int32, device=device)[None, :]
     pos = pos + (off[:, None] if off.ndim else off)   # per-row offsets allowed
-    return pos.expand(batch, seq).to(torch.int32)
+    pos = pos.expand(batch, seq).to(torch.int32)
+    if cfg.mrope:
+        return pos[None].expand(3, batch, seq)
+    return pos

@@ -1,4 +1,4 @@
-"""Decoder-LM assembly: the dense, MoE, Mamba2 hybrid and xLSTM families.
+"""Decoder-LM assembly for all ten architecture families.
 
 Layer stacks are grouped into their minimal repeating *period*; the params
 and caches of the period's layers carry a leading ``(n_full,)`` axis, as in
@@ -6,24 +6,27 @@ and caches of the period's layers carry a leading ``(n_full,)`` axis, as in
 (``x[:, slot]``) carry over leaf for leaf.  Where the reference scans that
 axis with `jax.lax.scan`, `forward` runs a Python loop over it.
 
-Supported: stacks of attention + FFN blocks (the dense family: granite,
+The families: stacks of attention + FFN blocks (the dense family: granite,
 qwen1.5, nemotron), of attention + MoE-FFN blocks (dbrx, kimi-k2; their
-aux losses summed over the layers) and of Mamba2 mixers with zamba2's
+aux losses summed over the layers), of Mamba2 mixers with zamba2's
 weight-shared attention block, applied at the start of each period of
 ``shared_attn_every`` layers and before each tail layer whose index is a
-multiple of it; its KV caches are per depth (``shared`` stacked over the
-periods, ``tail_shared`` a list), and of xLSTM's mLSTM and sLSTM mixers
-(xlstm-1.3b: periods of 7 mLSTM and 1 sLSTM).  The encoder and
-cross-attention, vision prefixes and hoisted RoPE tables raise
-`NotImplementedError` (ROADMAP Queue 1 item 13).
+multiple of it (its KV caches are per depth: ``shared`` stacked over the
+periods, ``tail_shared`` a list), of xLSTM's mLSTM and sLSTM mixers
+(xlstm-1.3b: periods of 7 mLSTM and 1 sLSTM), the encoder-decoder
+(seamless: a bidirectional encoder, `encode`, over stub frame embeddings,
+and a cross-attention in every decoder block, whose projected memory a
+cache holds as ``cross``) and the VLM (qwen2-vl: a stub patch-embedding
+prefix and M-RoPE's (3, B, S) position ids).  ``remat="dots"`` raises
+`NotImplementedError` (ROADMAP Queue 1 item 5).
 
 `forward` covers full-sequence and cached (prefill-into-cache, decode) runs
 via the optional cache, and runs under autograd when grad is enabled (the
 serving steps turn it off); `lm_loss` is the training loss.  The cache's K
-and V, conv windows and SSM and xLSTM states are updated IN PLACE.  Each stacked
-parameter leaf is unbound once a forward (`torch.unbind`, whose backward
-stacks the layers' gradients in one allocation) instead of being indexed
-layer by layer.
+and V (the cross-attention's too), conv windows and SSM and xLSTM states
+are updated IN PLACE.  Each stacked parameter leaf is unbound once a
+forward (`torch.unbind`, whose backward stacks the layers' gradients in
+one allocation) instead of being indexed layer by layer.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .._tree import tree_map, tree_stack
-from .attention import attention, init_attention, init_kv_cache
+from .attention import _self_attention_math, attention, init_attention, init_kv_cache
 from .config import BLOCK_ATTN, BLOCK_MAMBA2, BLOCK_MLSTM, BLOCK_MOE, BLOCK_SLSTM, ModelConfig
 from .ffn import ffn, init_ffn
 from .layers import (
@@ -49,6 +52,7 @@ from .layers import (
     init_linear,
     init_rmsnorm,
     positions_for,
+    rope_tables,
     unembed,
 )
 from .moe import init_moe, moe_ffn
@@ -104,20 +108,12 @@ _MIXERS = {
 }
 
 
-def _layout(cfg: ModelConfig) -> StackLayout:
-    """The layout, or `NotImplementedError` for what the port still lacks."""
-    layout = stack_layout(cfg)
-    if cfg.n_encoder_layers:
-        raise NotImplementedError("encoder-decoder: ROADMAP Queue 1 item 13")
-    if cfg.mrope or cfg.vision_stub_patches:
-        raise NotImplementedError("VLM / M-RoPE: ROADMAP Queue 1 item 13")
-    return layout
-
-
 # ------------------------------------------------------------------ init --
-def _init_attn_block(generator, cfg: ModelConfig, dtype, device, moe: bool = False) -> Dict:
+def _init_attn_block(generator, cfg: ModelConfig, dtype, device, moe: bool = False,
+                     cross: bool = False) -> Dict:
     """An attention block; its FFN is ``moe`` (router and stacked experts)
-    for the MoE kind, else ``ffn``."""
+    for the MoE kind, else ``ffn``; with ``cross``, also the decoder's
+    ``norm_cross`` and cross-attention ``cross``."""
     d = cfg.d_model
     p = {
         "norm1": init_rmsnorm(d, dtype, device),
@@ -128,52 +124,63 @@ def _init_attn_block(generator, cfg: ModelConfig, dtype, device, moe: bool = Fal
         p["moe"] = init_moe(generator, cfg, dtype, device=device)
     else:
         p["ffn"] = init_ffn(generator, cfg, dtype, device=device)
+    if cross:
+        p["norm_cross"] = init_rmsnorm(d, dtype, device)
+        p["cross"] = init_attention(generator, cfg, dtype, cross=True, device=device)
     return p
 
 
 def init_block(generator, cfg: ModelConfig, kind: str, dtype, cross: bool = False,
                device=None) -> Dict:
-    if cross:
-        raise NotImplementedError("cross-attention blocks: ROADMAP Queue 1 item 13")
     device = generator.device if device is None else device
     if kind in _MIXERS:
         return {"norm1": init_rmsnorm(cfg.d_model, dtype, device),
                 "mixer": _MIXERS[kind][0](generator, cfg, dtype, device=device)}
     if kind in (BLOCK_ATTN, BLOCK_MOE):
-        return _init_attn_block(generator, cfg, dtype, device, moe=kind == BLOCK_MOE)
+        return _init_attn_block(generator, cfg, dtype, device, moe=kind == BLOCK_MOE,
+                                cross=cross)
     raise ValueError(kind)
 
 
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      cross_len: int = 0, device="cuda") -> Dict:
-    if cross_len:
-        raise NotImplementedError(f"cross-attention cache (cross_len={cross_len}): "
-                                  "ROADMAP Queue 1 item 13")
     if kind in _MIXERS:
         return {"mixer": _MIXERS[kind][1](cfg, batch, device)}
     if kind in (BLOCK_ATTN, BLOCK_MOE):
-        return {"attn": init_kv_cache(cfg, batch, max_len, dtype_of(cfg.compute_dtype), device)}
+        cd = dtype_of(cfg.compute_dtype)
+        c = {"attn": init_kv_cache(cfg, batch, max_len, cd, device)}
+        if cross_len:
+            c["cross"] = init_kv_cache(cfg, batch, cross_len, cd, device)
+        return c
     raise ValueError(kind)
 
 
 def init_lm(generator: torch.Generator, cfg: ModelConfig, device=None) -> Dict:
     """Full parameter tree.  Stacked period params carry a leading
     (n_full,) axis; tail layers and the shared attention block are
-    unstacked.  ``device`` defaults to the generator's."""
+    unstacked; an encoder-decoder's ``encoder`` holds its blocks stacked
+    over its ``n_encoder_layers`` and its final norm.  ``device`` defaults
+    to the generator's."""
     dtype = dtype_of(cfg.param_dtype)
-    layout = _layout(cfg)
+    layout = stack_layout(cfg)
     device = generator.device if device is None else torch.device(device)
+    cross = cfg.n_encoder_layers > 0
     params: Dict[str, Any] = {
         "embed": init_embedding(generator, cfg.vocab_size, cfg.d_model, dtype, device)}
     blocks = {}
     for j, kind in enumerate(layout.period_kinds):
         blocks[f"pos{j}"] = tree_stack(
-            layout.n_full, lambda: init_block(generator, cfg, kind, dtype, device=device))
+            layout.n_full, lambda: init_block(generator, cfg, kind, dtype, cross, device))
     params["blocks"] = blocks
-    params["tail"] = [init_block(generator, cfg, kind, dtype, device=device)
+    params["tail"] = [init_block(generator, cfg, kind, dtype, cross, device)
                       for kind in layout.tail]
     if layout.shared_attn:
         params["shared_attn"] = _init_attn_block(generator, cfg, dtype, device)
+    if cross:
+        params["encoder"] = {
+            "blocks": tree_stack(cfg.n_encoder_layers,
+                                 lambda: _init_attn_block(generator, cfg, dtype, device)),
+            "final_norm": init_rmsnorm(cfg.d_model, dtype, device)}
     params["final_norm"] = init_rmsnorm(cfg.d_model, dtype, device)
     if not cfg.tie_embeddings:
         params["unembed"] = init_linear(generator, cfg.d_model, cfg.vocab_size,
@@ -183,7 +190,7 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig, device=None) -> Dict:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, cross_len: int = 0,
                per_slot_index: bool = False, device="cuda") -> Dict:
-    layout = _layout(cfg)
+    layout = stack_layout(cfg)
     idx = torch.zeros((batch,) if per_slot_index else (), dtype=torch.int32,
                       device=device)
     cache: Dict[str, Any] = {"blocks": {}, "tail": [], "index": idx}
@@ -213,7 +220,8 @@ def reset_slot(cache: Dict, slot) -> Dict:
     """Zero one batch slot across the whole cache, IN PLACE, and return the
     cache (continuous batching: recurrent SSM states carry no positional
     mask, so a freed slot is wiped before a new request is admitted; the
-    index must be per-slot)."""
+    index must be per-slot).  A decoder block's cross K/V lie under
+    ``blocks`` / ``tail`` and are zeroed with them."""
     cache["index"][slot] = 0
     tree_map(lambda x: x[:, slot].zero_(), cache["blocks"])
     tree_map(lambda x: x[slot].zero_(), cache["tail"])
@@ -229,10 +237,30 @@ def _bar(x, cfg):
     return bf16_cotangent_barrier(x) if cfg.bf16_cotangent else x
 
 
+def _cross_memory(bp, cfg, cache, encoder_out):
+    """The cross-attention's K and V, (B, S_enc, Hkv, Dh): projected from
+    ``encoder_out`` (training, prefill) and, with a cache, written into its
+    ``cross`` in place; else read back from the cache (decode)."""
+    if encoder_out is None:
+        if cache is None or "cross" not in cache:
+            raise ValueError("decode without encoder_out needs a cross cache")
+        return cache["cross"]["k"], cache["cross"]["v"]
+    cd = dtype_of(cfg.compute_dtype)
+    heads = lambda t: t.reshape(*t.shape[:-1], cfg.n_kv_heads, cfg.d_head)
+    ck = heads(apply_linear(bp["cross"]["wk"], encoder_out, cd))
+    cv = heads(apply_linear(bp["cross"]["wv"], encoder_out, cd))
+    if cache is not None:
+        cross_len = cache["cross"]["k"].shape[1] if "cross" in cache else 0
+        if cross_len != ck.shape[1]:
+            raise ValueError(f"the cache's cross_len {cross_len} differs from the "
+                             f"encoder's length {ck.shape[1]}")
+        cache["cross"]["k"].copy_(ck)
+        cache["cross"]["v"].copy_(cv)
+    return ck, cv
+
+
 def _attn_block(bp, x, cfg, positions, cache, index, encoder_out, kind,
                 rope_cache=None):
-    if "cross" in bp or encoder_out is not None:
-        raise NotImplementedError("cross-attention: ROADMAP Queue 1 item 13")
     h = _bar(fused_rms_norm(x, bp["norm1"]["scale"], cfg.norm_eps), cfg)
     a, attn_cache = attention(
         bp["attn"], h, cfg, positions, causal=True,
@@ -242,6 +270,14 @@ def _attn_block(bp, x, cfg, positions, cache, index, encoder_out, kind,
     )
     x = x + a
     new_cache = None if cache is None else dict(cache, attn=attn_cache)
+    if "cross" in bp:
+        cd = dtype_of(cfg.compute_dtype)
+        hc = _bar(fused_rms_norm(x, bp["norm_cross"]["scale"], cfg.norm_eps), cfg)
+        ck, cv = _cross_memory(bp, cfg, cache, encoder_out)
+        q = apply_linear(bp["cross"]["wq"], hc, cd)
+        q = q.reshape(*q.shape[:-1], cfg.n_heads, cfg.d_head)
+        o = _self_attention_math(q, ck, cv, causal=False)
+        x = x + apply_linear(bp["cross"]["wo"], o.reshape(*hc.shape[:-1], -1), cd)
     h2 = _bar(fused_rms_norm(x, bp["norm2"]["scale"], cfg.norm_eps), cfg)
     if kind == BLOCK_MOE:
         f, aux, _ = moe_ffn(bp["moe"], h2, cfg)
@@ -257,20 +293,25 @@ def _add(total, aux):
     return aux if total is None else total + aux
 
 
-def apply_block(kind, bp, x, cfg, *, positions, cache, index):
+def apply_block(kind, bp, x, cfg, *, positions, cache, index, encoder_out=None,
+                rope_cache=None):
     """One layer: an attention + FFN or MoE-FFN block (zamba2's shared
-    block too, with its own per-depth KV cache), or a mixer block (Mamba2,
-    mLSTM, sLSTM): ``norm1``, the mixer, the residual add.  Returns (x,
-    aux loss or None).  The cache, if any, is updated in place."""
+    block too, with its own per-depth KV cache; an encoder-decoder's
+    decoder block with its cross-attention over ``encoder_out`` or the
+    cache's ``cross``), or a mixer block (Mamba2, mLSTM, sLSTM): ``norm1``,
+    the mixer, the residual add.  Returns (x, aux loss or None).  The
+    cache, if any, is updated in place."""
     if kind in (BLOCK_ATTN, BLOCK_MOE):
-        x, _, aux = _attn_block(bp, x, cfg, positions, cache, index, None, kind)
+        x, _, aux = _attn_block(bp, x, cfg, positions, cache, index, encoder_out, kind,
+                                rope_cache)
         return x, aux
     h = _bar(fused_rms_norm(x, bp["norm1"]["scale"], cfg.norm_eps), cfg)
     m, _ = _MIXERS[kind][2](bp["mixer"], h, cfg, None if cache is None else cache["mixer"])
     return x + m, None
 
 
-def _period(x, bp, shared, cfg, kinds, positions, cslice, shared_cache, index):
+def _period(x, bp, shared, cfg, kinds, positions, cslice, shared_cache, index,
+            encoder_out=None, rope_cache=None):
     """One period of the stack (the reference's scanned ``period_fn``): the
     shared attention block first, when the stack has one, then the
     period's layers.  Returns (x, the layers' aux loss or None)."""
@@ -278,12 +319,12 @@ def _period(x, bp, shared, cfg, kinds, positions, cslice, shared_cache, index):
         x = bf16_cotangent_barrier(x)
     if shared is not None:
         x, _ = apply_block(BLOCK_ATTN, shared, x, cfg, positions=positions,
-                           cache=shared_cache, index=index)
+                           cache=shared_cache, index=index, rope_cache=rope_cache)
     aux = None
     for j, kind in enumerate(kinds):
         cj = None if cslice is None else cslice[f"pos{j}"]
         x, a = apply_block(kind, bp[f"pos{j}"], x, cfg, positions=positions, cache=cj,
-                           index=index)
+                           index=index, encoder_out=encoder_out, rope_cache=rope_cache)
         aux = _add(aux, a)
     return x, aux
 
@@ -309,41 +350,42 @@ def forward(
     positions: Optional[torch.Tensor] = None,
     cache: Optional[Dict] = None,
     encoder_out: Optional[torch.Tensor] = None,
-    vision_embeds: Optional[torch.Tensor] = None,
-    input_embeds: Optional[torch.Tensor] = None,
+    vision_embeds: Optional[torch.Tensor] = None,  # (B, P, d) prefix stub
+    input_embeds: Optional[torch.Tensor] = None,   # bypass the embedding
     decoding: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict], torch.Tensor]:
     """Returns (hidden (B,S,d) -- NOT logits; see `logits_fn` --, new_cache,
     aux_loss).  Runs under autograd when grad is enabled.
 
-    ``new_cache`` shares its K/V, conv-window and SSM-state tensors with
-    ``cache``: they are written in place; only ``index`` is a new tensor.
-    ``remat="block"`` checkpoints each period (`torch.utils.checkpoint`,
-    recomputed in the backward) and
+    ``vision_embeds`` is put before the token embeddings (S counts it);
+    ``encoder_out`` is an encoder-decoder's memory (`encode`), which a cache
+    with a cross part takes in (prefill); without it the decoder blocks
+    read the cache's (decode).  ``new_cache`` shares its K/V, conv-window
+    and SSM-state tensors with ``cache``: they are written in place; only
+    ``index`` is a new tensor.  ``remat="block"`` checkpoints each period
+    (`torch.utils.checkpoint`, recomputed in the backward) and
     ``bf16_cotangent`` places the reference's barriers; both shape the
-    backward only.  ``psum_barrier`` is accepted and ignored (it shapes the
-    reference's compiled tensor-parallel program).  ``remat="dots"``,
-    ``hoist_rope``, ``encoder_out`` and ``vision_embeds`` raise
+    backward only.  ``hoist_rope`` computes the RoPE tables once a forward.
+    ``psum_barrier`` is accepted and ignored (it shapes the reference's
+    compiled tensor-parallel program).  ``remat="dots"`` raises
     `NotImplementedError`.
     """
-    if encoder_out is not None or vision_embeds is not None:
-        raise NotImplementedError("encoder memory / vision prefix: "
-                                  "ROADMAP Queue 1 item 13")
-    if cfg.hoist_rope:
-        raise NotImplementedError("hoist_rope: ROADMAP Queue 1 item 2")
     if cfg.remat not in ("none", "block"):
         raise NotImplementedError(f"remat={cfg.remat!r}: ROADMAP Queue 1 item 5")
     cd = dtype_of(cfg.compute_dtype)
-    layout = _layout(cfg)
+    layout = stack_layout(cfg)
     if input_embeds is not None:
         x = input_embeds.to(cd)
     else:
         x = embed(params["embed"], tokens, cd)
+    if vision_embeds is not None:
+        x = torch.cat([vision_embeds.to(cd), x], dim=1)
     B, S, _ = x.shape
     if positions is None:
         offset = cache["index"] if cache is not None else 0
         positions = positions_for(cfg, B, S, offset, device=x.device)
     index = cache["index"] if cache is not None else None
+    rope_cache = rope_tables(cfg, positions) if cfg.hoist_rope else None
 
     remat = cfg.remat == "block" and torch.is_grad_enabled()
     aux = None
@@ -355,18 +397,21 @@ def forward(
             cslice = tree_map(lambda t: t[i], cache["blocks"])
             if shared is not None:
                 sc = tree_map(lambda t: t[i], cache["shared"])
-        args = (x, bp, shared, cfg, layout.period_kinds, positions, cslice, sc, index)
+        args = (x, bp, shared, cfg, layout.period_kinds, positions, cslice, sc, index,
+                encoder_out, rope_cache)
         x, a = checkpoint(_period, *args, use_reentrant=False) if remat else _period(*args)
         aux = _add(aux, a)
     shared_at = _tail_shared_at(cfg, layout)
     for t, kind in enumerate(layout.tail):
         if t in shared_at:
+            # The reference applies the tail's shared blocks without the
+            # hoisted tables (RoPE from the positions).
             sc = None if cache is None else cache["tail_shared"][shared_at.index(t)]
             x, _ = apply_block(BLOCK_ATTN, shared, x, cfg, positions=positions, cache=sc,
                                index=index)
         cj = None if cache is None else cache["tail"][t]
         x, a = apply_block(kind, params["tail"][t], x, cfg, positions=positions, cache=cj,
-                           index=index)
+                           index=index, encoder_out=encoder_out, rope_cache=rope_cache)
         aux = _add(aux, a)
 
     x = _bar(x, cfg)
@@ -385,6 +430,34 @@ def logits_fn(params: Dict, hidden: torch.Tensor, cfg: ModelConfig) -> torch.Ten
     return apply_linear(params["unembed"], hidden, dtype_of(cfg.logit_dtype))
 
 
+# --------------------------------------------------------------- encoder --
+def _encoder_block(x, block, cfg, positions):
+    """One bidirectional encoder block (the reference's scanned ``body``)."""
+    h = fused_rms_norm(x, block["norm1"]["scale"], cfg.norm_eps)
+    a, _ = attention(block["attn"], h, cfg, positions, causal=False)
+    x = x + a
+    h2 = fused_rms_norm(x, block["norm2"]["scale"], cfg.norm_eps)
+    return x + ffn(block["ffn"], h2, cfg)
+
+
+def encode(params: Dict, input_embeds: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Bidirectional encoder over stub frontend embeddings (B, S_enc, d):
+    a loop over the stacked encoder blocks, each under
+    `torch.utils.checkpoint` when ``remat="block"`` and grad is on, then the
+    encoder's final norm."""
+    if cfg.remat not in ("none", "block"):
+        raise NotImplementedError(f"remat={cfg.remat!r}: ROADMAP Queue 1 item 5")
+    x = input_embeds.to(dtype_of(cfg.compute_dtype))
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    remat = cfg.remat == "block" and torch.is_grad_enabled()
+    for block in _unstack(params["encoder"]["blocks"], cfg.n_encoder_layers):
+        args = (x, block, cfg, positions)
+        x = (checkpoint(_encoder_block, *args, use_reentrant=False) if remat
+             else _encoder_block(*args))
+    return fused_rms_norm(x, params["encoder"]["final_norm"]["scale"], cfg.norm_eps)
+
+
 # ------------------------------------------------------------------ loss --
 def lm_loss(
     params: Dict,
@@ -392,10 +465,16 @@ def lm_loss(
     cfg: ModelConfig,
     loss_chunk: int = 0,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token CE.  batch: inputs/targets (B,S) [+ positions].
-    ``loss_chunk`` bounds the logits materialised at once to (B, chunk, V)."""
+    """Next-token CE.  batch: inputs/targets (B,S) [+ encoder_embeds /
+    vision_embeds / positions]; with a vision prefix the loss runs over the
+    text suffix.  ``loss_chunk`` bounds the logits materialised at once to
+    (B, chunk, V)."""
+    encoder_out = None
+    if cfg.n_encoder_layers:
+        encoder_out = encode(params, batch["encoder_embeds"], cfg)
     hidden, _, aux = forward(params, batch["inputs"], cfg,
                              positions=batch.get("positions"),
+                             encoder_out=encoder_out,
                              vision_embeds=batch.get("vision_embeds"))
     targets = batch["targets"].long()
     if hidden.shape[1] != targets.shape[1]:

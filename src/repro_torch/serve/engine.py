@@ -2,7 +2,10 @@
 
 `make_prefill_step` / `make_decode_step` build the pure step functions;
 `ServeEngine` drives the decode step for real requests, prefilling a
-request *through* the decode step, one token a step, into its slot.
+request *through* the decode step, one token a step, into its slot.  As in
+the reference, the engine takes neither a cross length nor a vision
+prefix: an encoder-decoder serves through the two step functions, and a
+VLM through the engine as text (the same id on all three M-RoPE axes).
 
 Everything runs on ``device`` (default ``"cuda"``); the cache (K/V, and
 the conv windows and SSM states of a hybrid stack) is updated in place.  The step functions run without autograd: their logits
@@ -21,26 +24,31 @@ import torch
 
 from repro_torch._tree import tree_map
 from repro_torch.models import ModelConfig, forward, init_cache, logits_fn
-from repro_torch.models.transformer import reset_slot
+from repro_torch.models.transformer import encode, reset_slot
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: int, cross_len: int = 0,
                       device="cuda"):
     """(params, batch) -> (cache, last_token_logits).
 
-    batch: {"tokens": (B,S)} (+ positions).  The cache is allocated inside
-    (zeros), so the Mamba2 mixers of a hybrid stack prefill from a zero
-    state through the chunked scan.  Decoder-only stacks (dense and hybrid).
+    batch: {"tokens": (B,S)} (+ encoder_embeds / vision_embeds / positions).
+    The cache is allocated inside (zeros), so the Mamba2 mixers of a hybrid
+    stack prefill from a zero state through the chunked scan; an
+    encoder-decoder's ``encoder_embeds`` are encoded and their projected K/V
+    fill the cache's ``cross`` part, ``cross_len`` long (the encoder's
+    length).
     """
-    if cross_len or cfg.n_encoder_layers:
-        raise NotImplementedError("encoder-decoder prefill: ROADMAP Queue 1 item 13")
 
     @torch.no_grad()
     def prefill(params, batch):
         tokens = batch["tokens"]
-        cache = init_cache(cfg, tokens.shape[0], max_len, device=device)
-        hidden, cache, _ = forward(params, tokens, cfg,
-                                   positions=batch.get("positions"), cache=cache)
+        encoder_out = None
+        if cfg.n_encoder_layers:
+            encoder_out = encode(params, batch["encoder_embeds"], cfg)
+        cache = init_cache(cfg, tokens.shape[0], max_len, cross_len=cross_len, device=device)
+        hidden, cache, _ = forward(params, tokens, cfg, positions=batch.get("positions"),
+                                   cache=cache, encoder_out=encoder_out,
+                                   vision_embeds=batch.get("vision_embeds"))
         return cache, logits_fn(params, hidden[:, -1:], cfg)
 
     return prefill

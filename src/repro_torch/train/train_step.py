@@ -37,12 +37,14 @@ def make_train_step(
     n_microbatch: int = 1,
 ):
     """``train_step(state, batch) -> (state, metrics)``; batch: tensors
-    ``inputs`` / ``targets`` (B, S) on the parameters' device.
+    ``inputs`` / ``targets`` (B, S) on the parameters' device (+
+    ``encoder_embeds`` / ``vision_embeds`` (B, ., d), ``positions`` (B, S)
+    or, under M-RoPE, (3, B, S)).
 
-    With ``n_microbatch > 1`` the batch's leading dim is split and the
-    gradients are accumulated in fp32 (bounds activation memory
-    independently of the batch size); the metrics are the last
-    microbatch's, as in the reference."""
+    With ``n_microbatch > 1`` the batch dim is split (the second axis of
+    (3, B, S) positions) and the gradients are accumulated in fp32 (bounds
+    activation memory independently of the batch size); the metrics are
+    the last microbatch's, as in the reference."""
 
     def single(params, batch):
         leaves = []
@@ -59,8 +61,14 @@ def make_train_step(
         metrics = {k: v.detach() for k, v in metrics.items()}
         return tree_map(lambda _: next(grads), live), metrics["loss"], metrics
 
+    def split(key, v):
+        """(n_microbatch, B / n_microbatch, ...) of a batch leaf."""
+        if key == "positions" and v.ndim == 3:       # M-RoPE's (3, B, S)
+            return v.reshape(3, n_microbatch, -1, *v.shape[2:]).transpose(0, 1)
+        return v.reshape(n_microbatch, -1, *v.shape[1:])
+
     def accumulated(params, batch):
-        micro = {k: v.reshape(n_microbatch, -1, *v.shape[1:]) for k, v in batch.items()}
+        micro = {k: split(k, v) for k, v in batch.items()}
         acc, loss_sum, metrics = None, 0.0, None
         for i in range(n_microbatch):
             grads, loss, metrics = single(params, {k: v[i] for k, v in micro.items()})

@@ -199,14 +199,6 @@ class TestAttentionEntry:
         out = self._cached("granite-3-2b", 1, index)
         assert bool(torch.isfinite(out).all())
 
-    def test_what_waits_raises(self):
-        _, tcfg, _, tparams = self._setup("granite-3-2b")
-        x = torch.zeros(1, 2, tcfg.d_model)
-        with pytest.raises(NotImplementedError):
-            tattn.attention(tparams, x, tcfg, None, kv_input=x)
-        with pytest.raises(NotImplementedError):
-            tattn.attention(tparams, x, tcfg, None, rope_cache=(x, x))
-
     def test_init_shapes(self):
         tcfg = treduced(tget_config("qwen1.5-0.5b"))
         g = torch.Generator("cpu").manual_seed(0)
