@@ -22,10 +22,16 @@ greedy steps, ``train_seamless`` trains on 2 x 4096 tokens over 2 x 2048
 frames) and qwen2-vl-2b (VLM with M-RoPE, all 28 layers: ``serve_qwen2vl``
 serves text requests through the engine, ``train_qwen2vl`` trains on 256
 stub patch embeddings on a 16 x 16 grid and 3840 text tokens a sequence).
+``sharded_train`` trains granite-3-2b (all 40 layers) again through
+`Trainer(mesh=, strategy=)` on a one-rank NCCL mesh of shape (1, 1), its
+state DTensors placed by `parallel.sharding.state_specs`; its first 3
+losses and gradient norms must equal ``train``'s bit for bit.
 ``relocate_train`` moves a
 granite training job through a checkpoint: stopped after a save, resumed by
 a fresh `Trainer`, it must restore every leaf bit for bit and repeat the
-stopped job's next loss bit for bit.  It checks that each path really went
+stopped job's next loss bit for bit; the same checkpoint is then resumed a
+second time through `runtime.elastic.ElasticSupervisor` onto a (1, 1)
+mesh, bit for bit again.  It checks that each path really went
 through its kernels (launch counts equal to their per-step formulas), that
 the kernels' path agrees with the plain path for serving and for training,
 and that a live slot (KV caches, and a recurrent stack's conv windows and
@@ -59,8 +65,9 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-PHASES = ("build", "kernels", "serve", "train", "serve_zamba2", "train_zamba2", "serve_dbrx",
-          "train_dbrx", "serve_xlstm", "slstm_layer", "train_xlstm", "relocate_train", "timing",
+PHASES = ("build", "kernels", "serve", "train", "sharded_train", "serve_zamba2", "train_zamba2",
+          "serve_dbrx", "train_dbrx", "serve_xlstm", "slstm_layer", "train_xlstm",
+          "relocate_train", "timing",
           "path_vs_plain", "train_vs_plain", "migrate",
           "path_vs_plain_zamba2", "train_vs_fp32_zamba2", "train_vs_plain_zamba2",
           "migrate_zamba2", "path_vs_plain_dbrx", "migrate_dbrx",
@@ -365,6 +372,8 @@ def launches_per_step(cfg, train, prefill=False):
 MAIN_PATH_COUNTS = {
     "serve": dict(rms_norm=81, decode_attention=40, flash_attention=0, ssm_scan=0),
     "train": dict(rms_norm=81 + 80, decode_attention=0, flash_attention=40 + 40, ssm_scan=0),
+    "sharded_train": dict(rms_norm=81 + 80, decode_attention=0, flash_attention=40 + 40,
+                          ssm_scan=0),
     "serve_zamba2": dict(rms_norm=191, decode_attention=14, flash_attention=0, ssm_scan=0),
     "train_zamba2": dict(rms_norm=93 + 84, decode_attention=0, flash_attention=7 + 6,
                          ssm_scan=39 + 36),
@@ -1143,13 +1152,19 @@ def train_batches(torch, data, device, n):
             for i in range(n)]
 
 
+TRAIN_LOGS = {}                 # each train phase's metrics log, by phase
+
+
 def phase_train(torch, device, cfg, steps, phase="train", data=None,
-                loss_chunk=TRAIN_LOSS_CHUNK):
+                loss_chunk=TRAIN_LOSS_CHUNK, mesh=None, optimizer=None, check_state=None):
     """``cfg`` through `Trainer.run`: 2 x 4096 positions a step (``data``,
     by default `SyntheticLM`'s tokens), AdamW, block remat, ``steps``
     steps; finite losses and gradient norms, and each kernel's launches
-    equal to steps times its per-step count."""
+    equal to steps times its per-step count.  With ``mesh`` the trainer
+    is sharded on it (`default_strategy`); ``check_state`` is called with
+    the final state."""
     import statistics
+    from repro_torch.parallel.sharding import default_strategy
     from repro_torch.train import Trainer, TrainerConfig
 
     tcfg = TrainerConfig(steps=steps, log_every=10 ** 9, loss_chunk=loss_chunk)
@@ -1157,7 +1172,9 @@ def phase_train(torch, device, cfg, steps, phase="train", data=None,
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    trainer = Trainer(cfg, tcfg, data, device=device)
+    strategy = default_strategy(mesh) if mesh is not None else None
+    trainer = Trainer(cfg, tcfg, data, mesh=mesh, strategy=strategy, optimizer=optimizer,
+                      device=device)
     state, _ = trainer.init_or_restore()
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -1198,6 +1215,10 @@ def phase_train(torch, device, cfg, steps, phase="train", data=None,
     step_device_ms, top, step_launches = profile_device_time(torch, one_step, iters=1)
     profile_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in _leaves(state["params"]))
+    TRAIN_LOGS[phase] = dict(log=log, step_s=step_s, peak=peak, step_device_ms=step_device_ms,
+                             step_call_ms=step_call_s * 1e3)
+    if check_state is not None:
+        check_state(state)
     emit(phase=phase, model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
          params=n_params, dtype=cfg.compute_dtype, remat=cfg.remat, optimizer=cfg.optimizer,
          batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, encoder_frames=data.frames,
@@ -1214,6 +1235,86 @@ def phase_train(torch, device, cfg, steps, phase="train", data=None,
          peak_memory_bytes=peak, setup_seconds=setup_s, setup_peak_memory_bytes=setup_peak)
     del trainer, state, box, batch
     torch.cuda.empty_cache()
+    return launches
+
+
+SHARDED_STEPS = 3
+_MESH = {}
+
+
+def one_rank_mesh(torch):
+    """A (1, 1) ("data", "model") DeviceMesh on the card, over a one-rank
+    NCCL process group (a FileStore under build/), made once a run."""
+    if "mesh" not in _MESH:
+        from repro_torch.runtime.elastic import MeshPlan, init_process_group
+
+        store = Path(__file__).resolve().parent / "build" / "process_group_store"
+        store.parent.mkdir(parents=True, exist_ok=True)
+        store.unlink(missing_ok=True)
+        init_process_group("cuda", f"file://{store}", 0, 1)
+        _MESH["mesh"] = MeshPlan((1, 1), ("data", "model")).build()
+    return _MESH["mesh"]
+
+
+def close_mesh():
+    if _MESH:
+        import torch.distributed as dist
+        _MESH.clear()
+        dist.destroy_process_group()
+
+
+def phase_sharded_train(torch, device, cfg, phase="sharded_train"):
+    """``cfg`` through `Trainer(mesh=, strategy=default_strategy(mesh))` on a
+    one-rank NCCL (1, 1) mesh: every state leaf a DTensor on the card with
+    the placements `state_specs` gives; the first SHARDED_STEPS losses and
+    gradient norms equal the unsharded ``train`` phase's bit for bit (same
+    seed, batches and schedule: a one-rank gather and reduce-scatter are
+    the tensors themselves); launches a step as the formula's."""
+    from repro_torch._tree import tree_items
+    from repro_torch.parallel.sharding import default_strategy, layouts, state_specs
+    from repro_torch.train import make_optimizer, state_shapes
+    from torch.distributed.tensor import DTensor
+
+    opt = make_optimizer(cfg.optimizer, lr=1e-3, warmup=max(1, TRAIN_STEPS // 10),
+                         total_steps=TRAIN_STEPS)       # the train phase's schedule
+    if "train" not in TRAIN_LOGS:
+        phase_train(torch, device, cfg, SHARDED_STEPS, "train", optimizer=opt)
+    mesh = one_rank_mesh(torch)
+    where = dict(tree_items(layouts(state_specs(state_shapes(cfg, opt), mesh,
+                                                default_strategy(mesh)), mesh)))
+    seen = {}
+
+    def check_state(state):
+        leaves = list(tree_items(state))
+        require([p for p, _ in leaves] == list(where), f"{phase}: leaf paths differ")
+        for path, t in leaves:
+            require(isinstance(t, DTensor) and t.to_local().is_cuda
+                    and tuple(t.placements) == tuple(where[path].placements),
+                    f"{phase}: leaf {path} is not a DTensor on the card placed as "
+                    f"state_specs says")
+        seen["leaves"] = len(leaves)
+        seen["sharded"] = sum(any(p.is_shard() for p in where[k].placements) for k in where)
+
+    launches = phase_train(torch, device, cfg, SHARDED_STEPS, phase, mesh=mesh, optimizer=opt,
+                           check_state=check_state)
+    mine, plain = TRAIN_LOGS[phase], TRAIN_LOGS["train"]
+    for a, b in zip(mine["log"], plain["log"][:SHARDED_STEPS]):
+        require(a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"],
+                f"{phase}: step {a['step']} loss {a['loss']!r} / grad norm "
+                f"{a['grad_norm']!r} != train's {b['loss']!r} / {b['grad_norm']!r}")
+    emit(phase=phase + "_vs_train", mesh_shape=list(mesh.shape),
+         mesh_axes=list(mesh.mesh_dim_names), backend="nccl", leaves=seen["leaves"],
+         leaves_with_shard_placements=seen["sharded"],
+         losses_and_grad_norms_bit_equal=True,
+         step_seconds=mine["step_s"], train_step_seconds=plain["step_s"],
+         step_over_train=mine["step_s"] / plain["step_s"],
+         peak_memory_bytes=mine["peak"], train_peak_memory_bytes=plain["peak"],
+         peak_over_train_bytes=mine["peak"] - plain["peak"],
+         step_device_ms=mine["step_device_ms"], train_step_device_ms=plain["step_device_ms"],
+         device_idle_share=(None if mine["step_device_ms"] is None
+                            else 1.0 - mine["step_device_ms"] / mine["step_call_ms"]),
+         train_device_idle_share=(None if plain["step_device_ms"] is None
+                                  else 1.0 - plain["step_device_ms"] / plain["step_call_ms"]))
     return launches
 
 
@@ -2244,7 +2345,9 @@ def phase_relocate_train(torch, device, cfg, phase="relocate_train"):
             require(a.device.type == "cuda" and a.dtype == b.dtype
                     and torch.equal(a.cpu(), b), f"{phase}: (a) leaf {p} differs")
         counters = [p for p, t in mine if t.dtype == torch.int32]
+        elastic = resume_elastic(torch, phase, cfg, root, moved, theirs, ran[RELOCATE_EVERY + 1])
         del theirs
+        free()
         zero_counts()
         moved.run(state=state, start_step=start)
         torch.cuda.synchronize()
@@ -2303,8 +2406,43 @@ def phase_relocate_train(torch, device, cfg, phase="relocate_train"):
          a_leaves_bit_equal=True, b_first_loss_bit_equal=True,
          c_deterministic=deterministic, c_spread=spread, c_later_abs_diff=later,
          control=dict(checkpoint_step=cstart, loss=control_loss, fails_b=True),
-         launches=launches)
+         elastic=elastic, launches=launches)
     return launches
+
+
+def resume_elastic(torch, phase, cfg, root, moved, saved, want_loss):
+    """The job's checkpoint resumed a second time, through
+    `ElasticSupervisor.rescale` onto a (1, 1) NCCL mesh (`reshard_restore`
+    into `state_specs`' placements): every leaf a DTensor equal to the
+    saved one bit for bit, and the first resumed step's loss ``want_loss``
+    bit for bit.  It writes no checkpoint."""
+    from repro_torch._tree import tree_items
+    from repro_torch.runtime.elastic import ElasticSupervisor, MeshPlan
+    from repro_torch.train import Trainer, TrainerConfig
+    from torch.distributed.tensor import DTensor
+
+    one_rank_mesh(torch)
+    sup = ElasticSupervisor(str(root), cfg, moved.optimizer, MeshPlan((1, 1), ("data", "model")))
+    t0 = time.perf_counter()
+    state, step, mesh, strat = sup.rescale(0)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    require(step == RELOCATE_EVERY + 1 and tuple(mesh.shape) == (1, 1),
+            f"{phase}: the rescale resumed at step {step} on {tuple(mesh.shape)}")
+    for (p, a), (_, b) in zip(tree_items(state), saved):
+        require(isinstance(a, DTensor) and a.to_local().is_cuda and a.dtype == b.dtype
+                and torch.equal(a.full_tensor().cpu(), b),
+                f"{phase}: the rescaled leaf {p} differs from the saved one")
+    tcfg = TrainerConfig(steps=step + 1, log_every=10 ** 9, loss_chunk=TRAIN_LOSS_CHUNK)
+    job = Trainer(cfg, tcfg, moved.data, mesh=mesh, strategy=strat, optimizer=moved.optimizer)
+    job.run(state=state, start_step=step)
+    loss = job.metrics_log[0]["loss"]
+    require(loss == want_loss, f"{phase}: the rescaled job's step {step} loss {loss!r} != "
+                               f"{want_loss!r}")
+    del job, state
+    return dict(mesh_shape=list(mesh.shape), resumed_at_step=step, restore_seconds=restore_s,
+                leaves_bit_equal=True, first_loss=loss, first_loss_bit_equal=True,
+                rescales=sup.rescales)
 
 
 # -------------------------------------------------------------------- MoE --
@@ -2540,6 +2678,7 @@ def main(argv=None):
 
     # Each path's launches, read just after it ran with every count at 0.
     paths = {"serve": (granite, False), "train": (granite, True),
+             "sharded_train": (granite, True),
              "serve_zamba2": (zamba, False),
              "train_zamba2": (cut(zamba, ZAMBA_TRAIN_LAYERS), True),
              "serve_dbrx": (cut(dbrx, DBRX_SERVE_LAYERS), False),
@@ -2579,6 +2718,9 @@ def main(argv=None):
             launches["serve"] = timed("serve", phase_serve, torch, device, granite, 24)
         if run("train"):
             launches["train"] = timed("train", phase_train, torch, device, granite, TRAIN_STEPS)
+        if run("sharded_train"):
+            launches["sharded_train"] = timed("sharded_train", phase_sharded_train, torch,
+                                              device, granite)
         if run("serve_zamba2"):
             launches["serve_zamba2"] = timed("serve_zamba2", phase_serve, torch, device, zamba,
                                              ZAMBA_REQUESTS, "serve_zamba2")
@@ -2668,6 +2810,8 @@ def main(argv=None):
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        close_mesh()
     print(smi_line, flush=True)
     emit(phase="done", seconds=time.perf_counter() - t_start, phases=only or list(PHASES),
          phase_seconds=seconds)

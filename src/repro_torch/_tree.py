@@ -1,15 +1,23 @@
-"""Nested dicts / lists of tensors: the port's stand-in for a JAX pytree."""
+"""Nested dicts / lists of tensors: the port's stand-in for a JAX pytree.
+
+Containers are dicts, lists and plain tuples; a tuple subclass (a
+`parallel.sharding.PartitionSpec`, a `Layout`) is a leaf, as JAX treats a
+PartitionSpec."""
 
 from __future__ import annotations
 
 from typing import Any, Callable, Iterator, Tuple
 
 
+def _is_seq(tree: Any) -> bool:
+    return isinstance(tree, list) or type(tree) is tuple
+
+
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
     """Apply ``fn`` leafwise; ``rest`` trees must have ``tree``'s structure."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
+    if _is_seq(tree):
         return [tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree)]
     return fn(tree, *rest)
 
@@ -32,7 +40,7 @@ def tree_map_with_path(fn: Callable, tree: Any, sep: str = ".", prefix: str = ""
     """``fn(leaf path, leaf)`` leafwise, the path as `tree_items` gives it."""
     if isinstance(tree, dict):
         return {k: tree_map_with_path(fn, v, sep, f"{prefix}{k}{sep}") for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
+    if _is_seq(tree):
         return [tree_map_with_path(fn, v, sep, f"{prefix}{i}{sep}") for i, v in enumerate(tree)]
     return fn(prefix[:-len(sep)], tree)
 
@@ -44,7 +52,7 @@ def tree_items(tree: Any, sep: str = ".", prefix: str = "") -> Iterator[Tuple[st
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from tree_items(tree[k], sep, f"{prefix}{k}{sep}")
-    elif isinstance(tree, (list, tuple)):
+    elif _is_seq(tree):
         for i, v in enumerate(tree):
             yield from tree_items(v, sep, f"{prefix}{i}{sep}")
     else:

@@ -31,9 +31,16 @@ and puts each leaf on ``device`` shard by shard as it reads.  `save` and
 `restore` take an optional ``stats`` dict, into which they add the seconds
 of each stage and the bytes moved (what a relocation's cost is made of);
 every stage's seconds are the calling thread's wall time, so that they add
-up to the call's.  The
-expert-parallel and cross-mesh placement of the reference's ``shardings``
-argument belongs to the parallel layer, not yet ported.
+up to the call's.
+
+A sharded state moves like a whole one.  `save` and
+`CheckpointManager.save_async` take a tree of DTensors: every rank of the
+mesh gathers each leaf (a collective), and the mesh's first rank writes
+it, so the files hold whole arrays and a job's layout is never on disk.
+`restore(..., placements=)` (the reference's ``shardings``) reads each
+leaf on the host on every rank and keeps the rank's shard of it, as a
+DTensor in the leaf's `parallel.sharding.Layout`: a job saved on one mesh
+resumes on another.
 """
 
 from __future__ import annotations
@@ -162,6 +169,46 @@ def checkpoint_nbytes(path: str) -> Tuple[int, int]:
     return total, max(len(shards), 1)
 
 
+def _mesh_of(tree: Any):
+    """The DeviceMesh of a tree's DTensor leaves, or None for a tree of
+    plain tensors."""
+    from ..parallel.comm import is_dtensor
+
+    for _, leaf in _flat(tree):
+        if is_dtensor(leaf):
+            return leaf.device_mesh
+    return None
+
+
+def _writes(mesh) -> bool:
+    """Whether this rank writes the mesh's checkpoints: the first of the mesh."""
+    coord = mesh.get_coordinate()
+    return coord is not None and not any(coord)
+
+
+def _gathered(tree: Any, mesh) -> Any:
+    """Host copies of ``tree``'s whole leaves on the writing rank (None on
+    the others); every rank of the mesh gathers, leaf by leaf."""
+    from ..parallel.comm import is_dtensor
+
+    writer = _writes(mesh)
+
+    def one(t):
+        whole = t.full_tensor() if is_dtensor(t) else t
+        return _host_copy(whole) if writer else None
+
+    out = tree_map(one, tree)
+    return out if writer else None
+
+
+def _mesh_barrier(mesh) -> None:
+    """Every rank of the mesh has come here (a sum over each mesh dim in
+    turn)."""
+    from ..parallel.comm import all_reduce_, mesh_device
+
+    all_reduce_(torch.zeros(1, device=mesh_device(mesh)), mesh, range(mesh.ndim))
+
+
 def _host_copy(t: torch.Tensor) -> torch.Tensor:
     """A contiguous host copy of ``t`` that later in-place updates of ``t``
     (the port's optimizers) do not reach; waits for the device."""
@@ -190,6 +237,12 @@ def save(directory: str, step: int, tree: Any, extra: Optional[Dict] = None,
     pool: compression not hidden behind the other stages) and ``write``,
     and ``payload_bytes`` and ``file_bytes``."""
     final = os.path.join(directory, f"step_{step:08d}")
+    mesh = _mesh_of(tree)
+    if mesh is not None:
+        tree = _gathered(tree, mesh)
+        if tree is None:                    # another rank writes
+            _mesh_barrier(mesh)
+            return final
     tmp = tempfile.mkdtemp(prefix=".tmp_ckpt_", dir=directory or ".")
     codec = _DEFAULT_CODEC
     manifest: Dict[str, Any] = {
@@ -256,6 +309,8 @@ def save(directory: str, step: int, tree: Any, extra: Optional[Dict] = None,
     if os.path.exists(final):
         shutil.rmtree(final)
     os.replace(tmp, final)
+    if mesh is not None:
+        _mesh_barrier(mesh)
     return final
 
 
@@ -337,13 +392,18 @@ def _load_raw(path: str) -> Dict[str, torch.Tensor]:
     return {p: t.clone() for p, t in _iter_leaves(path)}
 
 
-def restore(path: str, like: Any, device=None, stats: Optional[Dict] = None) -> Any:
+def restore(path: str, like: Any, device=None, stats: Optional[Dict] = None,
+            placements: Any = None) -> Any:
     """Restore into the structure of ``like`` (tensors or ``meta`` tensors):
     each leaf is cast to its ``like`` leaf's type, checked against its shape
     and put on ``device`` (by default the ``like`` leaf's device, the host
-    for a ``meta`` leaf) as its shard is read.  ``stats`` gains the stages
-    of `_iter_leaves`, ``to_device`` seconds and ``payload_bytes``."""
+    for a ``meta`` leaf) as its shard is read.  With ``placements``, a tree
+    of `parallel.sharding.Layout` matching ``like`` (the reference's
+    ``shardings``), each leaf becomes a DTensor on its layout's mesh
+    holding this rank's shard, on the mesh's device.  ``stats`` gains the
+    stages of `_iter_leaves`, ``to_device`` seconds and ``payload_bytes``."""
     want = dict(_flat(like))
+    where = dict(_flat(placements)) if placements is not None else {}
     placed: Dict[str, torch.Tensor] = {}
     for key, t in _iter_leaves(path, stats):
         if key not in want:
@@ -354,7 +414,10 @@ def restore(path: str, like: Any, device=None, stats: Optional[Dict] = None) -> 
         target = device if device is not None else (
             "cpu" if leaf.device.type == "meta" else leaf.device)
         t0 = time.perf_counter()
-        placed[key] = t.to(device=target, dtype=leaf.dtype, copy=True)
+        if key in where:
+            placed[key] = _placed(t, leaf.dtype, where[key])
+        else:
+            placed[key] = t.to(device=target, dtype=leaf.dtype, copy=True)
         if placed[key].is_cuda:
             torch.cuda.synchronize(placed[key].device)
         _add(stats, "to_device", time.perf_counter() - t0)
@@ -363,6 +426,18 @@ def restore(path: str, like: Any, device=None, stats: Optional[Dict] = None) -> 
         if key not in placed:
             raise KeyError(f"checkpoint missing leaf {key}")
     return tree_map_with_path(lambda key, _: placed[key], like, sep="/")
+
+
+def _placed(t: torch.Tensor, dtype, layout) -> torch.Tensor:
+    """A DTensor of this rank's shard of the host tensor ``t``."""
+    from torch.distributed.tensor import DTensor
+
+    from ..parallel.comm import mesh_device
+    from ..parallel.sharding import local_chunk
+
+    part = local_chunk(t, layout).to(device=mesh_device(layout.mesh), dtype=dtype, copy=True)
+    return DTensor.from_local(part.contiguous(), layout.mesh, layout.placements,
+                              run_check=False)
 
 
 def read_extra(path: str) -> Dict:
@@ -386,20 +461,28 @@ class CheckpointManager:
         os.makedirs(directory, exist_ok=True)
         self._pool = cf.ThreadPoolExecutor(max_workers=1)
         self._pending: Optional[cf.Future] = None
+        self._mesh = None                # of the newest save, if it was sharded
         self.last_snapshot_s: Optional[float] = None
         self.last_save: Optional[Dict] = None
         self.last_restore: Optional[Dict] = None
 
     def snapshot(self, tree: Any) -> Any:
-        """The host copy that `save_async` hands to the background save."""
+        """The host copy that `save_async` hands to the background save: of
+        a tree of DTensors, the whole leaves on the mesh's writing rank and
+        None on the others (every rank gathers)."""
+        mesh = _mesh_of(tree)
+        if mesh is not None:
+            return _gathered(tree, mesh)
         return tree_map(_host_copy, tree)
 
     def save_async(self, step: int, tree: Any, extra: Optional[Dict] = None) -> None:
         self.wait()
         t0 = time.perf_counter()
+        self._mesh = _mesh_of(tree)
         host_tree = self.snapshot(tree)
         self.last_snapshot_s = time.perf_counter() - t0
-        self._pending = self._pool.submit(self._save_and_gc, step, host_tree, extra)
+        if host_tree is not None:
+            self._pending = self._pool.submit(self._save_and_gc, step, host_tree, extra)
 
     def _save_and_gc(self, step, tree, extra):
         t0 = time.perf_counter()
@@ -412,17 +495,22 @@ class CheckpointManager:
         return path
 
     def wait(self) -> None:
+        """Until the newest save is committed; after a sharded save, on
+        every rank of its mesh (each must call this)."""
         if self._pending is not None:
             pending, self._pending = self._pending, None
             pending.result()
+        if self._mesh is not None:
+            mesh, self._mesh = self._mesh, None
+            _mesh_barrier(mesh)
 
-    def restore_latest(self, like, device=None):
+    def restore_latest(self, like, device=None, placements=None):
         self.wait()
         path = latest_checkpoint(self.directory)
         if path is None:
             return None
         t0 = time.perf_counter()
         stats: Dict = {}
-        state = restore(path, like, device, stats)
+        state = restore(path, like, device, stats, placements)
         self.last_restore = dict(stats, seconds=time.perf_counter() - t0)
         return state, read_extra(path)

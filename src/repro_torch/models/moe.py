@@ -5,10 +5,17 @@ sort-based dispatch (DBRX 16e/top-4, Kimi-K2 384e/top-8); the port of
 The sort-based dispatch gives operations in proportion to the active
 experts' work (times the capacity factor).  The expert products are plain
 batched matrix products (`torch.matmul`), as the reference computes them
-outside any kernel of its own.  The reference's expert-parallel branch
-(`repro.parallel.moe_ep`, taken under a mesh whose strategy selects
-``ep_shardmap``) belongs to the parallel layer (ROADMAP Queue 1 item 14);
-the port has no mesh, so `moe_ffn` always runs the single-program path.
+outside any kernel of its own.  Under a sharding context whose strategy
+selects ``ep_shardmap`` (and whose model axis divides the experts), `moe_ffn`
+takes the expert-parallel branch, `parallel.moe_ep.moe_ffn_ep`, as the
+reference does; otherwise the single-program path below, with the experts
+gathered whole where they are DTensors.  There, as in the reference, the
+layer is over the whole batch, wherever its rows are: when the
+data-parallel ranks each hold a part, they share their per-expert counts
+(`parallel.context.dp_gather`), so that the capacity is the whole batch's,
+a rank's assignments take their places in each expert's buffer after
+those of the ranks before it, and the load balance uses the whole batch's
+dispatch fractions.
 
 Two differences of order, neither of value where the inputs have no ties:
 `torch.topk` does not promise the reference's lower index first among
@@ -28,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from .._tree import tree_stack
+from ..parallel.context import current, dp_gather, ep_size, gather_params
 from .config import ModelConfig
 from .ffn import ACTIVATIONS, init_ffn
 from .layers import dtype_of, init_linear
@@ -69,13 +77,17 @@ def build_dispatch(top_ids, top_p, n_tokens: int, cfg: ModelConfig, cap: int):
     return _plan(top_ids, top_p, n_tokens, cfg, cap)[1:]
 
 
-def _plan(top_ids, top_p, n_tokens: int, cfg: ModelConfig, cap: int):
-    """The sorting permutation, then `build_dispatch`'s outputs."""
+def _plan(top_ids, top_p, n_tokens: int, cfg: ModelConfig, cap: int, before=None):
+    """The sorting permutation, then `build_dispatch`'s outputs.  ``before``
+    (E,): the assignments to each expert that take its buffer's places
+    ahead of these (those of the batch's earlier rows, held elsewhere)."""
     k = cfg.top_k
     flat_e = top_ids.reshape(-1)                                  # (T*k,)
     sorted_e, order = torch.sort(flat_e, stable=True)
     counts = torch.bincount(flat_e, minlength=cfg.n_experts)
     offsets = torch.cumsum(counts, 0) - counts
+    if before is not None:
+        offsets = offsets - before
     rank = torch.arange(n_tokens * k, device=top_ids.device) - offsets[sorted_e]
     keep = rank < cap
     buffer_idx = torch.where(keep, sorted_e * cap + rank,
@@ -84,11 +96,16 @@ def _plan(top_ids, top_p, n_tokens: int, cfg: ModelConfig, cap: int):
     return order, token_src, buffer_idx, keep, top_p.reshape(-1)[order]
 
 
-def aux_losses(logits, probs, top_ids, cfg: ModelConfig):
-    """Switch-style load-balance loss + router z-loss."""
+def aux_losses(logits, probs, top_ids, cfg: ModelConfig, dispatched=None):
+    """Switch-style load-balance loss + router z-loss.  ``dispatched`` (E,):
+    the whole batch's assignments to each expert where these tokens are a
+    part of it; the loss is then this part's share, linear in its tokens'
+    router statistics, so that the mean over equal parts is the whole
+    batch's loss."""
     E = cfg.n_experts
-    dispatched = torch.bincount(top_ids.reshape(-1), minlength=E).float()   # (E,)
-    frac_dispatched = dispatched / (top_ids.shape[0] * cfg.top_k)
+    if dispatched is None:
+        dispatched = torch.bincount(top_ids.reshape(-1), minlength=E)        # (E,)
+    frac_dispatched = dispatched.float() / dispatched.sum()
     mean_prob = probs.mean(0)
     balance = E * torch.sum(frac_dispatched * mean_prob)
     z = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
@@ -115,16 +132,25 @@ def moe_ffn(params: Dict, x: torch.Tensor,
             cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
     """MoE FFN.  x: (B, S, d) -> (out, aux_loss, metrics).
 
-    Capacity is taken over all B*S tokens of the call, so in decode (S = 1)
-    a row's output depends on which experts the other rows chose: an
-    assignment past its expert's capacity is dropped, as in the reference.
+    Capacity is taken over all B*S tokens of the call (of the whole batch,
+    under a context whose data-parallel ranks each hold a part), so in
+    decode (S = 1) a row's output depends on which experts the other rows
+    chose: an assignment past its expert's capacity is dropped, as in the
+    reference.
     """
+    if ep_size(cfg) > 1:
+        from ..parallel.moe_ep import moe_ffn_ep
+        return moe_ffn_ep(params, x, cfg, *current())
+    params = gather_params(params, experts=True)
     B, S, d = x.shape
     T = B * S
     xf = x.reshape(T, d)
     logits, probs, top_p, top_ids = router_probs(params, xf, cfg)
-    cap = capacity(T, cfg)
-    order, token_src, buffer_idx, keep, weight = _plan(top_ids, top_p, T, cfg, cap)
+    counts = torch.bincount(top_ids.reshape(-1), minlength=cfg.n_experts)
+    every, part = dp_gather(counts)                   # (n_parts, E): every part's counts
+    cap = capacity(T * every.shape[0], cfg)
+    order, token_src, buffer_idx, keep, weight = _plan(top_ids, top_p, T, cfg, cap,
+                                                       before=every[:part].sum(0))
 
     # Dropped assignments all write the dump row E*cap, which is discarded.
     buf = torch.zeros((cfg.n_experts * cap + 1, d), dtype=x.dtype, device=x.device)
@@ -137,7 +163,7 @@ def moe_ffn(params: Dict, x: torch.Tensor,
     # Back to (token, choice) order, then each token's k outputs summed.
     unsorted = gathered[torch.argsort(order)]
     out = unsorted.reshape(T, cfg.top_k, d).sum(1)
-    aux, metrics = aux_losses(logits, probs, top_ids, cfg)
+    aux, metrics = aux_losses(logits, probs, top_ids, cfg, dispatched=every.sum(0))
     metrics["moe_drop_frac"] = 1.0 - keep.float().mean()
     return out.reshape(B, S, d), aux, metrics
 

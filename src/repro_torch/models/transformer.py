@@ -27,6 +27,12 @@ and V (the cross-attention's too), conv windows and SSM and xLSTM states
 are updated IN PLACE.  Each stacked parameter leaf is unbound once a
 forward (`torch.unbind`, whose backward stacks the layers' gradients in
 one allocation) instead of being indexed layer by layer.
+
+Under a sharded train step the parameters are DTensors: each block's are
+gathered into whole tensors where the block runs
+(`parallel.context.gather_params`), inside each remat'd period, so that
+one period's parameters are whole at a time; outside a sharding context
+the gather returns its input.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .._tree import tree_map, tree_stack
+from ..parallel.context import gather_params
 from .attention import _self_attention_math, attention, init_attention, init_kv_cache
 from .config import BLOCK_ATTN, BLOCK_MAMBA2, BLOCK_MLSTM, BLOCK_MOE, BLOCK_SLSTM, ModelConfig
 from .ffn import ffn, init_ffn
@@ -317,6 +324,7 @@ def _period(x, bp, shared, cfg, kinds, positions, cslice, shared_cache, index,
     period's layers.  Returns (x, the layers' aux loss or None)."""
     if cfg.bf16_cotangent:
         x = bf16_cotangent_barrier(x)
+    bp, shared = gather_params(bp), gather_params(shared)
     if shared is not None:
         x, _ = apply_block(BLOCK_ATTN, shared, x, cfg, positions=positions,
                            cache=shared_cache, index=index, rope_cache=rope_cache)
@@ -377,7 +385,7 @@ def forward(
     if input_embeds is not None:
         x = input_embeds.to(cd)
     else:
-        x = embed(params["embed"], tokens, cd)
+        x = embed(gather_params(params["embed"]), tokens, cd)
     if vision_embeds is not None:
         x = torch.cat([vision_embeds.to(cd), x], dim=1)
     B, S, _ = x.shape
@@ -402,6 +410,8 @@ def forward(
         x, a = checkpoint(_period, *args, use_reentrant=False) if remat else _period(*args)
         aux = _add(aux, a)
     shared_at = _tail_shared_at(cfg, layout)
+    if layout.tail:
+        shared = gather_params(shared)
     for t, kind in enumerate(layout.tail):
         if t in shared_at:
             # The reference applies the tail's shared blocks without the
@@ -410,12 +420,13 @@ def forward(
             x, _ = apply_block(BLOCK_ATTN, shared, x, cfg, positions=positions, cache=sc,
                                index=index)
         cj = None if cache is None else cache["tail"][t]
-        x, a = apply_block(kind, params["tail"][t], x, cfg, positions=positions, cache=cj,
-                           index=index, encoder_out=encoder_out, rope_cache=rope_cache)
+        x, a = apply_block(kind, gather_params(params["tail"][t]), x, cfg, positions=positions,
+                           cache=cj, index=index, encoder_out=encoder_out,
+                           rope_cache=rope_cache)
         aux = _add(aux, a)
 
     x = _bar(x, cfg)
-    x = fused_rms_norm(x, params["final_norm"]["scale"], cfg.norm_eps)
+    x = fused_rms_norm(x, gather_params(params["final_norm"])["scale"], cfg.norm_eps)
     new_cache = None
     if cache is not None:
         new_cache = dict(cache, index=cache["index"] + S)
@@ -433,6 +444,7 @@ def logits_fn(params: Dict, hidden: torch.Tensor, cfg: ModelConfig) -> torch.Ten
 # --------------------------------------------------------------- encoder --
 def _encoder_block(x, block, cfg, positions):
     """One bidirectional encoder block (the reference's scanned ``body``)."""
+    block = gather_params(block)
     h = fused_rms_norm(x, block["norm1"]["scale"], cfg.norm_eps)
     a, _ = attention(block["attn"], h, cfg, positions, causal=False)
     x = x + a
@@ -455,7 +467,8 @@ def encode(params: Dict, input_embeds: torch.Tensor, cfg: ModelConfig) -> torch.
         args = (x, block, cfg, positions)
         x = (checkpoint(_encoder_block, *args, use_reentrant=False) if remat
              else _encoder_block(*args))
-    return fused_rms_norm(x, params["encoder"]["final_norm"]["scale"], cfg.norm_eps)
+    return fused_rms_norm(x, gather_params(params["encoder"]["final_norm"])["scale"],
+                          cfg.norm_eps)
 
 
 # ------------------------------------------------------------------ loss --
@@ -472,7 +485,11 @@ def lm_loss(
     encoder_out = None
     if cfg.n_encoder_layers:
         encoder_out = encode(params, batch["encoder_embeds"], cfg)
-    hidden, _, aux = forward(params, batch["inputs"], cfg,
+    # The head is gathered once: a tied embedding serves the lookup too.
+    key = "embed" if cfg.tie_embeddings else "unembed"
+    head = gather_params({key: params[key]})
+    hidden, _, aux = forward(dict(params, **head) if cfg.tie_embeddings else params,
+                             batch["inputs"], cfg,
                              positions=batch.get("positions"),
                              encoder_out=encoder_out,
                              vision_embeds=batch.get("vision_embeds"))
@@ -481,7 +498,7 @@ def lm_loss(
         hidden = hidden[:, hidden.shape[1] - targets.shape[1]:]
 
     def ce(h_chunk, t_chunk):
-        lg = logits_fn(params, h_chunk, cfg)
+        lg = logits_fn(head, h_chunk, cfg)
         gold = torch.gather(lg, -1, t_chunk[..., None])[..., 0]
         return (torch.logsumexp(lg, dim=-1) - gold).sum()
 

@@ -17,6 +17,16 @@ and updates a large stacked leaf a run of its leading rows at a time (one
 layer's stacked expert weights of dbrx-132b are 4.2 GB in fp32), in two
 passes because its update clipping takes the RMS over the whole leaf.
 ``grads`` are not modified.
+
+Sharded trees (DTensors placed by `parallel.sharding.state_specs`, as the
+sharded train step holds them) are updated shard by shard on each rank's
+local tensors.  Every reduction over a whole leaf or over a cut dim runs
+across the ranks that hold its parts: the global norm, Adafactor's row
+and column means and its update clipping.  `adam8bit`'s int8 blocks run
+along the last dim; where that dim is cut at a block edge each rank
+quantizes its own blocks, and a leaf cut elsewhere is updated whole
+(gathered, updated, cut again).  A mesh dim of one rank cuts nothing, so
+on a one-rank mesh the update is the unsharded one, bit for bit.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from .._tree import tree_leaves, tree_map
+from ..parallel.comm import all_reduce_, is_dtensor, local, sharding_dims
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,9 +76,52 @@ def _square_norm(x: torch.Tensor) -> torch.Tensor:
                         for i in range(0, flat.numel(), _CHUNK_ELEMENTS)]).sum()
 
 
+def _layout(t):
+    """(mesh, placements) of a DTensor, else None."""
+    return (t.device_mesh, tuple(t.placements)) if is_dtensor(t) else None
+
+
+def _cut(lay, tensor_dim=None):
+    """The mesh dims of more than one rank that cut ``tensor_dim`` of a
+    leaf laid out as ``lay`` (any dim if None)."""
+    if lay is None:
+        return ()
+    mesh, pls = lay
+    return tuple(k for k in sharding_dims(pls, tensor_dim) if mesh.size(k) > 1)
+
+
+def _ranks(lay, dims) -> int:
+    n = 1
+    for k in dims:
+        n *= lay[0].size(k)
+    return n
+
+
+def _mean(x: torch.Tensor, dim: int, lay, tensor_dim: int, keepdim: bool = False):
+    """``x.mean(dim)``, where ``dim`` is the leaf's ``tensor_dim``: over the
+    whole dim, across the ranks that cut it."""
+    m = x.mean(dim, keepdim=keepdim)
+    cut = _cut(lay, tensor_dim)
+    if cut:
+        m = all_reduce_(m.contiguous(), lay[0], cut) / _ranks(lay, cut)
+    return m
+
+
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in fp32."""
-    return torch.sqrt(torch.stack([_square_norm(x) for x in tree_leaves(tree)]).sum())
+    """sqrt of the sum of squares of every leaf, in fp32 (of a DTensor leaf,
+    its parts' sums added across the ranks that hold them)."""
+    leaves = tree_leaves(tree)
+    sq = [_square_norm(local(x)) for x in leaves]
+    groups = {}
+    for i, x in enumerate(leaves):
+        lay = _layout(x)
+        if _cut(lay):
+            groups.setdefault((id(lay[0]), _cut(lay)), (lay[0], []))[1].append(i)
+    for (_, cut), (mesh, idx) in groups.items():
+        summed = all_reduce_(torch.stack([sq[i] for i in idx]), mesh, cut)
+        for j, i in enumerate(idx):
+            sq[i] = summed[j]
+    return torch.sqrt(torch.stack(sq).sum())
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -117,12 +171,13 @@ def adamw(
     def update(grads, state, params):
         step = state["step"] + 1
         scale = _clip_scale(global_norm(grads), grad_clip)
-        lr = lr_fn(step)
-        stepf = step.to(torch.float32)
+        lr = lr_fn(local(step))
+        stepf = local(step).to(torch.float32)
         bc1 = 1 - torch.pow(b1, stepf)
         bc2 = 1 - torch.pow(b2, stepf)
 
         def upd(p, g, m, v):
+            p, g, m, v = local(p), local(g), local(m), local(v)
             g32 = g.float() * scale
             m.mul_(b1).add_(g32, alpha=1 - b1)
             v.mul_(b2).addcmul_(g32, g32, value=1 - b2)
@@ -184,41 +239,51 @@ def adafactor(
 
     def update(grads, state, params):
         step = state["step"] + 1
-        beta2 = 1.0 - step.to(torch.float32) ** (-decay)
-        lr = lr_fn(step)
+        beta2 = 1.0 - local(step).to(torch.float32) ** (-decay)
+        lr = lr_fn(local(step))
 
-        def direction(g, s, first):
+        def direction(g, s, first, lay, nd):
             """The unclipped update g / sqrt(vhat); ``first`` moves the
-            statistics ``s`` on by this step's gradient first."""
+            statistics ``s`` on by this step's gradient first.  ``lay`` and
+            ``nd`` are the leaf's layout and rank (the means over its last
+            two dims run across the ranks that cut them)."""
             g = g.float()
             if first:
                 g2 = g.square() + eps
                 if "vr" in s:
-                    s["vr"].copy_(beta2 * s["vr"] + (1 - beta2) * g2.mean(-1))
-                    s["vc"].copy_(beta2 * s["vc"] + (1 - beta2) * g2.mean(-2))
+                    s["vr"].copy_(beta2 * s["vr"] + (1 - beta2) * _mean(g2, -1, lay, nd - 1))
+                    s["vc"].copy_(beta2 * s["vc"] + (1 - beta2) * _mean(g2, -2, lay, nd - 2))
                 else:
                     s["v"].copy_(beta2 * s["v"] + (1 - beta2) * g2)
                 del g2
             if "vr" in s:
                 vr, vc = s["vr"], s["vc"]
-                denom = vr.mean(-1, keepdim=True)[..., None]
+                denom = _mean(vr, -1, lay, nd - 2, keepdim=True)[..., None]
                 vhat = (vr[..., None] * vc[..., None, :]) / torch.clamp(denom, min=eps)
             else:
                 vhat = s["v"]
             return g * torch.rsqrt(vhat + eps)
 
         def upd(p, g, s):
+            lay, nd, numel = _layout(p), p.ndim, p.numel()
+            cut = _cut(lay)
+            p, g, s = local(p), local(g), {k: local(v) for k, v in s.items()}
             runs = _row_runs(p, g, s)
             if len(runs) == 1:
-                u = direction(g, s, True)
-                ms = torch.mean(u.square())
+                u = direction(g, s, True, lay, nd)
+                if cut:
+                    ms = all_reduce_(u.square().sum(), lay[0], cut) / numel
+                else:
+                    ms = torch.mean(u.square())
             else:        # the RMS over every run first, then each run again
-                ms = sum(direction(gr, sr, True).square().sum() for _, gr, sr in runs)
-                ms = ms / p.numel()
+                ms = sum(direction(gr, sr, True, lay, nd).square().sum() for _, gr, sr in runs)
+                if cut:
+                    ms = all_reduce_(ms, lay[0], cut)
+                ms = ms / numel
             # Update clipping (RMS at most the threshold).
             rms = torch.sqrt(ms + 1e-30)
             for pr, gr, sr in runs:
-                ur = u if len(runs) == 1 else direction(gr, sr, False)
+                ur = u if len(runs) == 1 else direction(gr, sr, False, lay, nd)
                 ur = ur / torch.clamp(rms / clip_threshold, min=1.0)
                 p_new = pr.float() - lr * ur
                 if weight_decay and p.ndim >= 2:
@@ -281,8 +346,8 @@ def adam8bit(
 
     def update(grads, state, params):
         step = state["step"] + 1
-        lr = lr_fn(step)
-        stepf = step.to(torch.float32)
+        lr = lr_fn(local(step))
+        stepf = local(step).to(torch.float32)
         bc1 = 1 - torch.pow(b1, stepf)
         bc2 = 1 - torch.pow(b2, stepf)
 
@@ -296,8 +361,31 @@ def adam8bit(
             s["mq"], s["ms"] = _quantize(m)
             s["vq"], s["vs"] = _quantize_sqrt(v)
 
+        def upd_sharded(p, g, s):
+            """A DTensor leaf: its own blocks where the last dim is cut at a
+            block edge (or not cut), else updated whole and cut again."""
+            from torch.distributed.tensor import DTensor
+
+            from ..parallel.sharding import Layout, local_chunk
+
+            mesh = p.device_mesh
+            lp, ls = local(p), {k: local(v) for k, v in s.items()}
+            aligned = not _cut(_layout(p), p.ndim - 1) or (
+                lp.shape[-1] % _Q_BLOCK == 0 and ls["mq"].shape[-2] * _Q_BLOCK == lp.shape[-1])
+            if aligned:
+                upd(lp, local(g), ls)
+            else:
+                whole = {k: v.full_tensor() for k, v in s.items()}
+                wp = p.full_tensor()
+                upd(wp, g.full_tensor(), whole)
+                lp.copy_(local_chunk(wp, Layout(mesh, p.placements)))
+                ls = {k: local_chunk(v, Layout(mesh, s[k].placements)).contiguous()
+                      for k, v in whole.items()}
+            for k, v in ls.items():
+                s[k] = DTensor.from_local(v, mesh, s[k].placements, run_check=False)
+
         for p, g, s in _zip_leaves(params, grads, state["q"]):
-            upd(p, g, s)
+            (upd_sharded if is_dtensor(p) else upd)(p, g, s)
         return params, {"q": state["q"], "step": step}
 
     return Optimizer("adam8bit", init, update)

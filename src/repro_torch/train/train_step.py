@@ -7,6 +7,18 @@ reference's does, but the state's parameters and optimizer moments are
 updated IN PLACE (see `repro_torch.train.optimizer`): the returned state
 holds the same tensors.  `state_shapes` builds the state on the ``meta``
 device (shapes and types, no memory).
+
+With a ``mesh`` the state is DTensors placed by
+`parallel.sharding.state_specs` (each rank holds its shards) and the step
+is FSDP's.  It takes the whole batch, cuts the rank's part
+(`parallel.sharding.local_batch`) and runs under
+`parallel.context.activation_sharding`: the model gathers each period's
+parameters where it uses them (`parallel.context.gather_params`), the
+gradients come back to each leaf's placements as a mean over the
+data-parallel ranks, each rank updates its own shards, and the metrics are
+averaged over the data-parallel ranks.  This is the reference's ``jit``
+with ``in_shardings``; tensor-parallel compute is not done (the ranks
+along "model" compute the same thing).
 """
 
 from __future__ import annotations
@@ -17,6 +29,9 @@ import torch
 
 from .._tree import tree_map
 from ..models import ModelConfig, init_lm, lm_loss
+from ..parallel.comm import all_reduce_, dp_dims
+from ..parallel.context import activation_sharding
+from ..parallel.sharding import ShardingStrategy, batch_mesh_dims, default_strategy, local_batch
 from .optimizer import Optimizer, global_norm
 
 
@@ -35,11 +50,14 @@ def make_train_step(
     optimizer: Optimizer,
     loss_chunk: int = 0,
     n_microbatch: int = 1,
+    mesh=None,
+    strategy: Optional[ShardingStrategy] = None,
 ):
     """``train_step(state, batch) -> (state, metrics)``; batch: tensors
     ``inputs`` / ``targets`` (B, S) on the parameters' device (+
     ``encoder_embeds`` / ``vision_embeds`` (B, ., d), ``positions`` (B, S)
-    or, under M-RoPE, (3, B, S)).
+    or, under M-RoPE, (3, B, S)), the whole batch also on a ``mesh`` (a
+    DeviceMesh; ``strategy`` by default `default_strategy(mesh)`).
 
     With ``n_microbatch > 1`` the batch dim is split (the second axis of
     (3, B, S) positions) and the gradients are accumulated in fp32 (bounds
@@ -79,17 +97,43 @@ def make_train_step(
             loss_sum = loss_sum + loss
         return tree_map(lambda g: g.div_(n_microbatch), acc), loss_sum / n_microbatch, metrics
 
-    def train_step(state, batch):
+    def step(state, batch):
         params = state["params"]
         if n_microbatch > 1:
             grads, _, metrics = accumulated(params, batch)
         else:
             grads, _, metrics = single(params, batch)
         metrics = dict(metrics, grad_norm=global_norm(grads))
+        if mesh is not None:
+            metrics = _dp_mean(metrics, mesh, strategy)
         params, opt = optimizer.update(grads, state["opt"], params)
         return {"params": params, "opt": opt, "step": state["step"] + 1}, metrics
 
-    return train_step
+    if mesh is None:
+        return step
+    strategy = strategy or default_strategy(mesh)
+
+    def sharded_step(state, batch):
+        cut = batch_mesh_dims(batch, mesh, strategy, n_microbatch)
+        batch = local_batch(batch, mesh, strategy, n_microbatch)
+        with activation_sharding(mesh, strategy, batch_dims=cut):
+            return step(state, batch)
+
+    return sharded_step
+
+
+def _dp_mean(metrics: Dict, mesh, strat) -> Dict:
+    """Each rank's metrics (of its part of the batch) averaged over the
+    data-parallel ranks; the gradient norm is the whole one already."""
+    dims = [k for k in dp_dims(mesh, strat) if mesh.size(k) > 1]
+    if not dims:
+        return metrics
+    n = 1
+    for k in dims:
+        n *= mesh.size(k)
+    names = [k for k in metrics if k != "grad_norm"]
+    summed = all_reduce_(torch.stack([metrics[k].float() for k in names]), mesh, dims) / n
+    return dict(metrics, **{k: summed[i] for i, k in enumerate(names)})
 
 
 def state_shapes(cfg: ModelConfig, optimizer: Optimizer) -> Dict:

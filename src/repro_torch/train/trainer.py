@@ -6,8 +6,16 @@ runs on ``device="cuda"`` unless asked otherwise.  With ``ckpt_dir`` it
 saves the train state every ``ckpt_every`` steps and at the end, in the
 reference's checkpoint format, and `init_or_restore` resumes from the
 newest committed checkpoint, written by either package: a job moves
-between a JAX host and this port by checkpoint and resume.  A mesh or
-sharding strategy (ROADMAP Queue 1 item 14) raises `NotImplementedError`.
+between a JAX host and this port by checkpoint and resume.
+
+With ``mesh`` (a `torch.distributed.device_mesh.DeviceMesh`, e.g.
+`runtime.elastic.MeshPlan.build`) the job trains sharded: the state is
+DTensors placed by `parallel.sharding.state_specs` under ``strategy`` (by
+default `default_strategy(mesh)`), each step runs on the rank's part of the
+batch (`train_step.make_train_step`'s sharded step), checkpoints hold whole
+arrays (every rank gathers, one writes) and `init_or_restore` restores
+into this mesh's placements, whatever mesh the checkpoint was saved from.
+Every rank of the mesh runs the same `Trainer`.  The device is the mesh's.
 """
 
 from __future__ import annotations
@@ -21,6 +29,9 @@ import torch
 from ..ckpt import CheckpointManager
 from ..data import DataConfig, SyntheticLM
 from ..models import ModelConfig
+from ..parallel.comm import mesh_device
+from ..parallel.sharding import (ShardingStrategy, default_strategy, distribute_tree, layouts,
+                                 state_specs)
 from .optimizer import Optimizer, make_optimizer
 from .train_step import init_state, make_train_step, state_shapes
 
@@ -48,18 +59,24 @@ class Trainer:
         tcfg: TrainerConfig,
         data: Iterable,
         mesh=None,
-        strategy=None,
+        strategy: Optional[ShardingStrategy] = None,
         optimizer: Optional[Optimizer] = None,
         step_hooks: Optional[List[Callable]] = None,
         device="cuda",
     ):
-        if mesh is not None or strategy is not None:
-            raise NotImplementedError("sharded training (mesh / strategy): "
-                                      "ROADMAP Queue 1 item 14")
+        from torch.distributed.device_mesh import DeviceMesh
+
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a torch.distributed DeviceMesh, not "
+                            f"{type(mesh).__name__}")
+        if strategy is not None and mesh is None:
+            raise ValueError("a sharding strategy needs a mesh")
         self.cfg = cfg
         self.tcfg = tcfg
         self.data = data
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.strategy = (strategy or default_strategy(mesh)) if mesh is not None else None
+        self.device = mesh_device(mesh) if mesh is not None else torch.device(device)
         # Without an optimizer, a schedule that fits the run length (a fixed
         # 100-step warm-up would swallow short runs), as the reference makes.
         self.optimizer = optimizer or make_optimizer(
@@ -69,20 +86,29 @@ class Trainer:
         self.ckpt = (CheckpointManager(tcfg.ckpt_dir, keep=tcfg.ckpt_keep)
                      if tcfg.ckpt_dir else None)
         self._step = make_train_step(cfg, self.optimizer, loss_chunk=tcfg.loss_chunk,
-                                     n_microbatch=tcfg.n_microbatch)
+                                     n_microbatch=tcfg.n_microbatch, mesh=mesh,
+                                     strategy=self.strategy)
+
+    def _specs(self):
+        return state_specs(state_shapes(self.cfg, self.optimizer), self.mesh, self.strategy)
 
     def init_or_restore(self):
         """Resume from the newest committed checkpoint in ``ckpt_dir``
-        (restored onto the device, at the step its ``extra`` names), or
-        fresh parameters from ``tcfg.seed``."""
+        (restored onto the device, or into the mesh's placements, at the
+        step its ``extra`` names), or fresh parameters from ``tcfg.seed``
+        (made whole on every rank of a mesh, which keeps its shards)."""
         if self.ckpt is not None:
+            where = layouts(self._specs(), self.mesh) if self.mesh is not None else None
             restored = self.ckpt.restore_latest(state_shapes(self.cfg, self.optimizer),
-                                                device=self.device)
+                                                device=self.device, placements=where)
             if restored is not None:
                 state, extra = restored
                 return state, int(extra.get("step", 0))
         generator = torch.Generator(self.device).manual_seed(self.tcfg.seed)
-        return init_state(generator, self.cfg, self.optimizer, device=self.device), 0
+        state = init_state(generator, self.cfg, self.optimizer, device=self.device)
+        if self.mesh is not None:
+            state = distribute_tree(state, self._specs(), self.mesh)
+        return state, 0
 
     def run(self, state=None, start_step: int = 0):
         if state is None:

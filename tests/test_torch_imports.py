@@ -37,7 +37,12 @@ def test_every_submodule_imports_without_jax_or_repro():
             "repro_torch.train.trainer", "repro_torch.data.pipeline",
             "repro_torch.models.ssm", "repro_torch.kernels.ssm_scan",
             "repro_torch.ckpt", "repro_torch.ckpt.checkpoint",
-            "repro_torch.models.moe"} <= set(names)
+            "repro_torch.models.moe", "repro_torch.parallel", "repro_torch.parallel.sharding",
+            "repro_torch.parallel.context", "repro_torch.parallel.comm",
+            "repro_torch.parallel.moe_ep", "repro_torch.parallel.pipeline",
+            "repro_torch.parallel.collectives", "repro_torch.runtime",
+            "repro_torch.runtime.elastic", "repro_torch.runtime.fault_tolerance",
+            "repro_torch.runtime.straggler"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"

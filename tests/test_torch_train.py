@@ -39,6 +39,8 @@ from repro_torch.models import layers as tlayers
 from repro_torch.train import optimizer as topt
 from repro_torch.train import trainer as ttrainer
 
+import torch_dist_util as du
+
 TOL = dict(atol=1e-4, rtol=1e-4)
 LOSS_TOL = dict(rtol=1e-5)
 BF16_TOL = dict(atol=5e-2, rtol=5e-2)
@@ -355,12 +357,18 @@ def test_trainer_three_steps_match_the_jax_trainer():
     assert int(state["step"]) == 1 and np.isfinite(fresh.metrics_log[0]["loss"])
 
 
-def test_trainer_refuses_what_waits():
+def test_trainer_refuses_what_waits(tmp_path):
+    """A `DeviceMesh` is taken (a one-rank gloo mesh: the state becomes
+    DTensors, the job trains, and its saved state restores into the mesh's
+    placements bit for bit); anything else as a mesh raises."""
     tcfg = tmodels.reduced(tget_config("granite-3-2b"))
     data = tdata.SyntheticLM(tdata.DataConfig(vocab_size=tcfg.vocab_size, global_batch=1,
                                               seq_len=8))
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ttrainer.Trainer(tcfg, ttrainer.TrainerConfig(), data, mesh=object(), device="cpu")
+    [ran] = du.run_ranks("rank_trainer_on_a_mesh", 1, tmp_path)
+    assert ran["all_dtensors"] and ran["steps"] == [0, 1] and np.all(np.isfinite(ran["losses"]))
+    assert ran["restored_dtensors"] and ran["restored_equal"]
 
 
 # ------------------------------------------------- serving stays grad-free --
