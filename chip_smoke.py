@@ -31,7 +31,14 @@ granite training job through a checkpoint: stopped after a save, resumed by
 a fresh `Trainer`, it must restore every leaf bit for bit and repeat the
 stopped job's next loss bit for bit; the same checkpoint is then resumed a
 second time through `runtime.elastic.ElasticSupervisor` onto a (1, 1)
-mesh, bit for bit again.  It checks that each path really went
+mesh, bit for bit again.  ``adapt`` runs the paper's adaptation flow
+for granite-3-2b's train cell on the 256-H100 production mesh (analysis,
+GA plan search, sizing and the meta dry run of the chosen plan, in a
+host process started with the run) and its verification step on the
+card (`repro_torch.launch.dryrun.verify_cell`: granite's train and
+decode steps measured beside the roofline of the same cut traced on
+meta; the card's FLOPs must equal the trace's, and the profiler's
+kernel launches the tally's scopes).  It checks that each path really went
 through its kernels (launch counts equal to their per-step formulas), that
 the kernels' path agrees with the plain path for serving and for training,
 and that a live slot (KV caches, and a recurrent stack's conv windows and
@@ -65,8 +72,8 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-PHASES = ("build", "kernels", "serve", "train", "sharded_train", "serve_zamba2", "train_zamba2",
-          "serve_dbrx", "train_dbrx", "serve_xlstm", "slstm_layer", "train_xlstm",
+PHASES = ("build", "kernels", "adapt", "serve", "train", "sharded_train", "serve_zamba2",
+          "train_zamba2", "serve_dbrx", "train_dbrx", "serve_xlstm", "slstm_layer", "train_xlstm",
           "relocate_train", "timing",
           "path_vs_plain", "train_vs_plain", "migrate",
           "path_vs_plain_zamba2", "train_vs_fp32_zamba2", "train_vs_plain_zamba2",
@@ -77,9 +84,6 @@ PHASES = ("build", "kernels", "serve", "train", "sharded_train", "serve_zamba2",
           "path_vs_plain_qwen2vl", "train_vs_fp32_qwen2vl", "train_vs_plain_qwen2vl",
           "migrate_qwen2vl")
 
-# Published peaks of one H100 SXM (dense): device memory and arithmetic.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5), "bfloat16": dict(atol=5e-2, rtol=5e-2)}
 # flash_attention's output and lse.  Both bf16 outputs are one rounding of
@@ -267,8 +271,12 @@ def profile_device_time(torch, fn, iters):
 
 
 def bound(nbytes, flops, dtype_name):
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    """The least ms of a call on the card (`launch.roofline.H100_SXM`, the
+    datasheet's memory rate and the peak of ``dtype_name``'s arithmetic),
+    and which of the two sets it."""
+    from repro_torch.launch.roofline import H100_SXM
+    by_bytes = nbytes / H100_SXM.hbm_bw * 1e3
+    by_ops = flops / H100_SXM.peak(dtype_name) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -389,6 +397,9 @@ MAIN_PATH_COUNTS = {
                           ssm_scan=0),
     "relocate_train": dict(rms_norm=5 + 4, decode_attention=0, flash_attention=2 + 2,
                            ssm_scan=0),
+    "adapt_train": dict(rms_norm=81 + 80, decode_attention=0, flash_attention=40 + 40,
+                        ssm_scan=0),
+    "adapt_decode": dict(rms_norm=81, decode_attention=40, flash_attention=0, ssm_scan=0),
     # serve_seamless's prefill, once before its decode steps
     "serve_seamless_prefill": dict(rms_norm=49 + 73, decode_attention=0, flash_attention=24,
                                    ssm_scan=0),
@@ -1318,6 +1329,102 @@ def phase_sharded_train(torch, device, cfg, phase="sharded_train"):
     return launches
 
 
+# adapt: the adaptation flow's cell (the controller's, on 256 H100s), and
+# the verification runs on the card: granite-3-2b at all 40 layers, train
+# as the train phase (2 x 4096, block remat, loss_chunk 1024, AdamW) and
+# decode as the serve phase's slots (8 x 4096 positions, every slot full),
+# ADAPT_STEPS timed steps each and one more under the tally and profiler.
+ADAPT_CELL, ADAPT_STEPS = ("granite-3-2b", "train_4k"), 3
+
+
+def start_controller(out_path):
+    """Steps 1-4 and 6 of the adaptation flow for `ADAPT_CELL` on the
+    production mesh (`repro_torch.core.adaptation.adapt`, a meta trace on
+    the host), in a process of its own that uses no card, so that it runs
+    beside the card's phases; `phase_adapt` reads its result."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"), CUDA_VISIBLE_DEVICES="")
+    cmd = [sys.executable, "-W", "ignore", "-m", "repro_torch.core.adaptation",
+           "--arch", ADAPT_CELL[0], "--shape", ADAPT_CELL[1], "--out", str(out_path)]
+    out_path.unlink(missing_ok=True)
+    with open(out_path.with_suffix(".err"), "w") as err:     # read if it fails
+        return subprocess.Popen(cmd, env=env, cwd=str(root), stdout=subprocess.DEVNULL,
+                                stderr=err)
+
+
+def phase_adapt(torch, device, cfg, controller, out_path, smi_line):
+    """`launch.dryrun.verify_cell`, Step 6 on the card, for granite's train
+    step and decode step at the train and serve phases' sizes: the measured
+    median step and peak beside the roofline of the same cut traced on
+    meta; then the controller's run for `ADAPT_CELL` on the 256-H100 mesh:
+    its analysis, GA plan, sizing and the dry run's terms under that plan.
+    It runs before the phases that trace much with the profiler: a process
+    that has traced much loses more of a trace's records.  Fails if the
+    controller failed, a step is not finite,
+    the card's FLOPs differ from the meta trace's, a kernel's scopes differ
+    from the profiler's launches or from the per-step count, or the
+    launches of the path from steps times that count.  Returns the two
+    paths' launches."""
+    from repro_torch.launch.dryrun import verify_cell
+    from repro_torch.launch.plans import CellPlan
+
+    close_mesh()                   # verify_cell opens its own one-rank group
+    launches = {}
+    runs = {"adapt_train": ("train_4k", TRAIN_BATCH, TRAIN_SEQ,
+                            CellPlan(loss_chunk=TRAIN_LOSS_CHUNK), True),
+            "adapt_decode": ("decode_32k", SERVE_SLOTS, SERVE_MAX_LEN, CellPlan(), False)}
+    for path, (shape, batch, seq, plan, train) in runs.items():
+        torch.cuda.empty_cache()
+        zero_counts()
+        try:
+            v = verify_cell(ADAPT_CELL[0], shape, batch, seq, steps=ADAPT_STEPS, device=device,
+                            plan=plan)
+        except RuntimeError as e:
+            raise Failed(f"{path}: {e}") from e
+        launches[path] = read_counts()
+        per_step = launches_per_step(cfg, train)
+        want = {k: n for k, n in per_step.items() if n}
+        require(v["card_scopes"] == want and v["op_stats"]["scopes"] == want,
+                f"{path}: scopes {v['card_scopes']} on the card, {v['op_stats']['scopes']} "
+                f"on meta, expected {want} a step")
+        require({k: n for k, n in v["profiler_launches"].items() if n} == want,
+                f"{path}: the profiler saw {v['profiler_launches']}, expected {want}")
+        check_counts(path, launches[path], per_step, v["steps_run"])
+        vr = v["roofline"]
+        emit(phase=path, model=cfg.name, layers=cfg.n_layers, kind=v["kind"], cut=v["cut"],
+             plan=v["plan"], mesh=v["mesh"], steps=ADAPT_STEPS, step_seconds=v["step_seconds"],
+             median_step_s=v["median_step_s"], peak_memory_bytes=v["peak_memory_bytes"],
+             roofline=vr, roofline_share=v["roofline_share"],
+             flops_meta=v["op_stats"]["flops"], flops_card=v["card_flops"],
+             bytes_meta=v["op_stats"]["bytes"], bytes_card=v["card_bytes"],
+             wire_bytes=v["op_stats"]["wire_bytes"], scopes=v["card_scopes"],
+             profiler_launches=v["profiler_launches"], wrapper_launches=v["wrapper_launches"],
+             profiler_lost_records=v["profiler_lost_records"],
+             kernels=v["op_stats"]["kernels"],
+             meta_trace_s=v["t_trace_s"], nvidia_smi=smi_line, device=v["device"])
+    try:
+        controller.wait(timeout=600)
+    except subprocess.TimeoutExpired as e:
+        raise Failed("adapt: the controller ran past 600 s") from e
+    require(controller.returncode == 0 and out_path.exists(),
+            f"adapt: the controller failed ({controller.returncode}): "
+            f"{out_path.with_suffix('.err').read_text()[-2000:]}")
+    ctl = json.loads(out_path.read_text())
+    row = ctl["verify"]
+    require(row["status"] == "ok", f"adapt: the controller's dry run: {row}")
+    r = row["roofline"]
+    emit(phase="adapt_controller", cell=list(ADAPT_CELL), mesh=row["mesh"], chips=r["chips"],
+         families=ctl["analysis"]["families"], offload=ctl["offload"],
+         best_plan=ctl["best_plan"], baseline_t_step_s=ctl["baseline_t_step_s"],
+         best_t_step_s=ctl["best_t_step_s"], ga_evaluations=ctl["ga_evaluations"],
+         cards_needed=ctl["chips"], trace_s=row["t_trace_s"], seconds=ctl["seconds"],
+         scopes=row["op_stats"]["scopes"], flops_per_device=row["op_stats"]["flops"],
+         bytes_per_device=row["op_stats"]["bytes"],
+         wire_bytes_by_axis=row["op_stats"]["wire_bytes_by_axis"],
+         peak_bytes=row["op_stats"]["peak_bytes"], roofline=r, hw=r["hw"])
+    return launches
+
+
 def phase_slstm_layer(torch, device, cfg, phase="slstm_layer"):
     """One sLSTM block of ``cfg`` alone at the training shape (2 x 4096
     tokens, bf16, random weights from seed 0): host-clock ms of its forward
@@ -1633,7 +1740,7 @@ def phase_timing(torch, device, launches, resources):
     ``resources`` the build's registers, spills and HMMA counts by kernel
     instance, which the tensor-core kernels' rows name."""
     import torch.nn.functional as F
-    from repro_torch.kernels.rmsnorm import rms_norm, rms_norm_plain
+    from repro_torch.kernels.rmsnorm import rms_norm, rms_norm_plain, work
 
     out = []
     dtype, dt = torch.bfloat16, "bfloat16"
@@ -1652,8 +1759,8 @@ def phase_timing(torch, device, launches, resources):
         lib, lib_call = (timer(lambda: F.rms_norm(x, x.shape[-1:], scale, 1e-5), iters=200)
                          if has_lib_norm else (None, None))
         ms2, call2 = timer(lambda: rms_norm(x, scale, 1e-5), iters=200)
-        nbytes = 2 * x.numel() * 2 + scale.numel() * 2
-        b_ms, b_by = bound(nbytes, 4 * x.numel(), "float32")   # fp32 math, no tensor cores
+        flops, nbytes = work(x, scale)
+        b_ms, b_by = bound(nbytes, flops, "float32")   # fp32 math, no tensor cores
         return dict(max_abs_err=err, ms=min(ms, ms2), plain_ms=plain, bound_ms=b_ms,
                     bound_by=b_by,
                     library_ms=lib, call_ms=min(call, call2), plain_call_ms=plain_call,
@@ -1839,7 +1946,7 @@ def decode_times(torch, timer, device, shape, resources, smi):
     build's registers, spills and HMMA count of the instance that runs."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (decode_attention, decode_attention_plain,
-                                                      kernel_instance)
+                                                      kernel_instance, work)
     dtype, dt = torch.bfloat16, "bfloat16"
     B, Sk, Hq, Hkv, D = shape
     q = rand(torch, (B, 1, Hq, D), dtype, 4, device)
@@ -1876,8 +1983,8 @@ def decode_times(torch, timer, device, shape, resources, smi):
         t = repeated(timer, fns, smi)
         lib = t.get("library", {})
         valid = int(lens.clamp(0, Sk).sum())
-        nbytes = 2 * valid * Hkv * D * 2 + 2 * q.numel() * 2 + lens.numel() * 4
-        b_ms, b_by = bound(nbytes, 4 * valid * Hq * D, dt)
+        flops, nbytes = work(q, k, v, lens)
+        b_ms, b_by = bound(nbytes, flops, dt)
         return dict(max_abs_err=err, err_over_tol=ratio, tol=DECODE_TOL[dt], ms=t["kernel"]["ms"],
                     ms_spread=t["kernel"]["ms_spread"], plain_ms=t["plain"]["ms"],
                     bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / t["kernel"]["ms"],
@@ -1902,7 +2009,7 @@ def instance(resources, name):
 def flash_times(torch, timer, device, case, resources, causal=True):
     """flash_attention at a path's shape, bf16 (causal: Sq = Sk); SDPA beside."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain, work
     dtype, dt = torch.bfloat16, "bfloat16"
     _, B, Sq, Sk, Hq, Hkv, D = case
     q = rand(torch, (B, Sq, Hq, D), dtype, 41, device)
@@ -1919,11 +2026,7 @@ def flash_times(torch, timer, device, case, resources, causal=True):
     lib, lib_call = (timer(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=causal, enable_gqa=True), iters=20) if sdpa_gqa else (None, None))
     ms2, call2 = timer(lambda: flash_attention(q, k, v, causal), iters=20)
-    # (query, key) pairs under the mask
-    pairs = B * Sq * (Sq + 1) // 2 if causal else B * Sq * Sk
-    flops = 4 * pairs * Hq * D                       # q.k and p.v, a multiply-add each
-    # q, k, v read once; out (q's size) and the fp32 lse written once.
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + B * Hq * Sq * 4
+    flops, nbytes = work(q, k, v, causal)
     b_ms, b_by = bound(nbytes, flops, dt)
     best = min(ms, ms2)
     name = f"flash_fwd_bf16_kernel<{D}, false>"     # the training shapes' D are exact instances
@@ -1940,9 +2043,10 @@ def ssm_times(torch, timer, device, case, resources):
     """ssm_scan at the train_zamba2 phase's shape, bf16, with x, B and C
     strided as `mamba2_block` hands them; the plain version beside it.  No
     single PyTorch call computes the scan, so there is no library time."""
-    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain, work
+    from repro_torch.launch.roofline import H100_SXM
     dt = "bfloat16"
-    B, S, H, P, N, L = case
+    L = case[-1]
     args = ssm_inputs(torch, case, torch.bfloat16, 91, device, strided=True)
     y, _ = ssm_scan(*args, chunk=L)
     want, _ = ssm_scan_plain(*args, L)
@@ -1953,19 +2057,13 @@ def ssm_times(torch, timer, device, case, resources):
     ms, call = timer(lambda: ssm_scan(*args, chunk=L), iters=20)
     plain, plain_call = timer(lambda: ssm_scan_plain(*args, L), iters=3)
     ms2, call2 = timer(lambda: ssm_scan(*args, chunk=L), iters=20)
-    # Per (batch, head, chunk): C.B^T (L*L*N), W.x (L*L*P), C.S^T (L*P*N) and
-    # the state update (P*N*L) multiply-adds.
-    flops = 2 * (L * L * N + L * L * P + 2 * L * P * N) * B * H * (S // L)
-    # x read and y written (bf16), B and C read (bf16), dt, A_log and D read
-    # and the final state written (fp32).
-    nbytes = 2 * (B * S * H * P) * 2 + 2 * (B * S * N) * 2 + B * S * H * 4 + 2 * H * 4 \
-        + B * H * P * N * 4
+    flops, nbytes = work(*args, chunk=L)
     b_ms, b_by = bound(nbytes, flops, dt)
     best = min(ms, ms2)
     return dict(max_abs_err=err, tol=tol, ms=best, plain_ms=plain, bound_ms=b_ms,
                 bound_by=b_by, library_ms=None, call_ms=min(call, call2),
                 plain_call_ms=plain_call, library_call_ms=None, bytes=nbytes, flops=flops,
-                fp32_core_ops_ms=flops / PEAK_FLOPS["float32"] * 1e3,
+                fp32_core_ops_ms=flops / H100_SXM.peak_flops_fp32 * 1e3,
                 achieved_gb_per_s=nbytes / (best * 1e-3) / 1e9,
                 achieved_tflops=flops / (best * 1e-3) / 1e12,
                 shape=list(case), dtype=dt, strided=True,
@@ -2687,9 +2785,12 @@ def main(argv=None):
              "train_xlstm": (cut(xlstm, XLSTM_TRAIN_LAYERS), True),
              "serve_seamless": (seamless, False), "train_seamless": (seamless, True),
              "serve_qwen2vl": (qwen, False), "train_qwen2vl": (qwen, True),
-             "relocate_train": (cut(granite, RELOCATE_LAYERS), True)}
+             "relocate_train": (cut(granite, RELOCATE_LAYERS), True),
+             "adapt_train": (granite, True), "adapt_decode": (granite, False)}
     launches = {path: {} for path in paths}
     seconds = {}
+    controller = None
+    controller_out = Path(__file__).resolve().parent / "build" / "adapt_controller.json"
 
     def timed(name, fn, *a, **kw):
         """Runs one phase and prints its seconds as it ends."""
@@ -2710,10 +2811,16 @@ def main(argv=None):
                 f"serve_seamless: the prefill's launches "
                 f"{launches_per_step(seamless, False, prefill=True)}")
         resources = {}
+        if run("adapt"):           # host-side: runs beside the card's phases
+            controller_out.parent.mkdir(parents=True, exist_ok=True)
+            controller = start_controller(controller_out)
         if run("build"):
             resources = timed("build", phase_build, args.verbose_build)
         if run("kernels"):
             timed("kernels", phase_kernels, torch, device)
+        if run("adapt"):           # before the phases that trace much with the profiler
+            launches.update(timed("adapt", phase_adapt, torch, device, granite, controller,
+                                  controller_out, smi_line))
         if run("serve"):
             launches["serve"] = timed("serve", phase_serve, torch, device, granite, 24)
         if run("train"):
@@ -2812,6 +2919,9 @@ def main(argv=None):
         return 1
     finally:
         close_mesh()
+        if controller is not None and controller.poll() is None:
+            controller.kill()
+            controller.wait()
     print(smi_line, flush=True)
     emit(phase="done", seconds=time.perf_counter() - t_start, phases=only or list(PHASES),
          phase_seconds=seconds)

@@ -31,6 +31,7 @@ import torch
 from repro_torch.models.attention import gqa_reference
 
 from . import _build
+from .scope import kernel_scope
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_GROUP = 8
@@ -123,6 +124,24 @@ def _launch_plan(B: int, Sk: int, Hq: int, Hkv: int, D: int, dtype: torch.dtype,
     return chunk, n_splits, scratch
 
 
+def work(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, kv_len
+         ) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one call: the valid prefix of K and V read once,
+    q read and the output written once, the (B,) int32 lengths read;
+    q.k and p.v a multiply-add each over the valid keys.  Where the
+    lengths are not known (tensors on the ``meta`` device) every slot is
+    taken as full."""
+    B, Sk, Hkv, D = k_cache.shape
+    Hq = q.shape[2]
+    if isinstance(kv_len, torch.Tensor) and kv_len.is_meta:
+        valid = B * Sk
+    else:
+        valid = int(torch.as_tensor(kv_len).reshape(-1).expand(B).clamp(0, Sk).sum())
+    itemsize = q.element_size()
+    nbytes = 2 * valid * Hkv * D * itemsize + 2 * q.numel() * itemsize + B * 4
+    return 4 * valid * Hq * D, nbytes
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      kv_len) -> torch.Tensor:
     """q ``(B, 1, Hq, D)`` against caches ``(B, Sk, Hkv, D)``; ``kv_len`` the
@@ -143,6 +162,14 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     if Bk != B or Dk != D or Hkv == 0 or Hq % Hkv:
         raise ValueError(f"decode_attention: q {tuple(q.shape)} does not fit caches "
                          f"{tuple(k_cache.shape)}")
+    peak = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
+    with kernel_scope("decode_attention", lambda: work(q, k_cache, v_cache, kv_len), peak):
+        return _run(q, k_cache, v_cache, kv_len)
+
+
+def _run(q, k_cache, v_cache, kv_len) -> torch.Tensor:
+    B, _, Hq, D = q.shape
+    Sk, Hkv = k_cache.shape[1], k_cache.shape[2]
     if not q.is_cuda:
         return decode_attention_plain(q, k_cache, v_cache, kv_len)
 

@@ -30,6 +30,7 @@ import torch
 from repro_torch.models.attention import NEG_INF, gqa_reference
 
 from . import _build
+from .scope import kernel_scope
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -46,6 +47,23 @@ def flash_attention_plain(q, k, v, causal: bool = True) -> Tuple[torch.Tensor, t
         mask = torch.arange(Sq, device=q.device)[:, None] >= torch.arange(Sk, device=q.device)
         scores = scores.masked_fill(~mask, NEG_INF)
     return out, torch.logsumexp(scores, dim=-1)
+
+
+def work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True
+         ) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one call: q.k and p.v, a multiply-add each, over
+    the (query, key) pairs the mask lets through (causal: key j for query
+    i when ``j <= i``, the kernel skipping tiles above the diagonal); q, k
+    and v read once, the output (q's size) and the fp32 lse written once."""
+    B, Sq, Hq, D = q.shape
+    Sk = k.shape[1]
+    if causal:
+        seen = min(Sq, Sk)                  # queries below Sk see keys 0..i
+        pairs = B * (seen * (seen + 1) // 2 + (Sq - seen) * Sk)
+    else:
+        pairs = B * Sq * Sk
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + B * Hq * Sq * 4
+    return 4 * pairs * Hq * D, nbytes
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -67,6 +85,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if Bk != B or Dk != D or Hkv == 0 or Hq % Hkv or Sk == 0:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit k / v "
                          f"{tuple(k.shape)}")
+    peak = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
+    with kernel_scope("flash_attention", lambda: work(q, k, v, causal), peak):
+        return _run(q, k, v, causal)
+
+
+def _run(q, k, v, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal)
 

@@ -17,18 +17,34 @@ Plain version: `repro_torch.models.layers.rms_norm`.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from repro_torch.models.layers import rms_norm as rms_norm_plain
 
 from . import _build
+from .scope import kernel_scope
 
 _ITEMSIZE = {torch.float32: 4, torch.bfloat16: 2}
 _MAX_VECTORS = 256 * 8      # 16-byte vectors a row: MAX_TPR * MAXV of the kernel
 
 
+def work(x: torch.Tensor, scale: torch.Tensor) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one call: x read and out written once, scale read
+    once, in x's type; four fp32 operations an element (square, sum,
+    normalise, scale), which run on the fp32 cores."""
+    itemsize = x.element_size()
+    return 4 * x.numel(), (2 * x.numel() + scale.numel()) * itemsize
+
+
 def _forward(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     """The plain version for a CPU tensor, the kernel for a CUDA tensor."""
+    with kernel_scope("rms_norm", lambda: work(x, scale), "float32"):
+        return _run(x, scale, eps)
+
+
+def _run(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     if not x.is_cuda:
         return rms_norm_plain(x, scale, eps)
     if scale.device != x.device:

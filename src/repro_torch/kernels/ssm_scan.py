@@ -33,6 +33,7 @@ import torch
 from repro_torch.models.ssm import ssd_chunked as ssm_scan_plain
 
 from . import _build
+from .scope import kernel_scope
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_DIM = 64       # chunk, P and N: the kernel's shared-memory tiles
@@ -87,11 +88,27 @@ def _launch(x, Bm, Cm, dt, A_log, D, chunk: int) -> Tuple[torch.Tensor, torch.Te
     return y, state
 
 
+def work(x, Bm, Cm, dt, A_log, D, chunk: int = 64) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one call.  FLOPs: per (batch, head, chunk) the
+    multiply-adds of C.B^T (L*L*N), W.x (L*L*P), C.S^T (L*P*N) and the
+    state update (P*N*L).  Bytes: x read and y written and B and C read in
+    x's type, dt, A_log and D read and the final state written in fp32."""
+    B, S, H, P = x.shape
+    N, L = Bm.shape[-1], chunk
+    flops = 2 * (L * L * N + L * L * P + 2 * L * P * N) * B * H * (S // L)
+    itemsize = x.element_size()
+    nbytes = (2 * x.numel() + Bm.numel() + Cm.numel()) * itemsize + dt.numel() * 4 \
+        + (A_log.numel() + D.numel()) * 4 + B * H * P * N * 4
+    return flops, nbytes
+
+
 def _forward(x, Bm, Cm, dt, A_log, D, chunk: int):
     """The plain version for a CPU tensor, the kernel for a CUDA tensor."""
-    if not x.is_cuda:
-        return ssm_scan_plain(x, Bm, Cm, dt, A_log, D, chunk)
-    return _launch(x, Bm, Cm, dt, A_log, D, chunk)
+    peak = "bfloat16" if x.dtype == torch.bfloat16 else "float32"
+    with kernel_scope("ssm_scan", lambda: work(x, Bm, Cm, dt, A_log, D, chunk), peak):
+        if not x.is_cuda:
+            return ssm_scan_plain(x, Bm, Cm, dt, A_log, D, chunk)
+        return _launch(x, Bm, Cm, dt, A_log, D, chunk)
 
 
 class _SSMScanFn(torch.autograd.Function):

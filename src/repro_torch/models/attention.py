@@ -27,7 +27,8 @@ tensors it was given, updated (the reference returns fresh arrays).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import contextlib
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -257,19 +258,74 @@ def _flash_bwd_rule(causal, q_chunk, k_chunk, res, dout):
     return dq, dk, dv
 
 
+class FlashSaver:
+    """The flash forwards' (out, lse) of one region that ``remat="dots"``
+    checkpoints: kept from its forward (``active(replay=False)``) and
+    handed back, in the same order, when the backward recomputes the region
+    (``active(replay=True)``), so that the recomputation does not run the
+    forward again, as `jax.checkpoint_policies.dots_saveable` keeps the
+    reference's products.  ``computing`` is true while a recorded forward
+    runs, so that the selective-checkpoint policy leaves that forward's own
+    ops unsaved."""
+
+    def __init__(self):
+        self.saved: List[Tuple[torch.Tensor, torch.Tensor]] = []
+        self.replay = False
+        self.computing = False
+        self.next = 0
+
+    @contextlib.contextmanager
+    def active(self, replay: bool):
+        """Record (``replay`` False) or replay, for the length of the block."""
+        global _SAVER
+        before, _SAVER = _SAVER, self
+        self.replay, self.next = replay, 0
+        try:
+            yield
+        finally:
+            _SAVER = before
+
+
+#: The active `FlashSaver` (process-wide: the recomputation runs on
+#: autograd's thread for a CUDA device), or None.
+_SAVER: Optional[FlashSaver] = None
+
+
+def flash_forward_computing() -> bool:
+    """Whether a flash forward that a `FlashSaver` records is running."""
+    return _SAVER is not None and _SAVER.computing
+
+
 class _FlashAttention(torch.autograd.Function):
     """Forward: the CUDA `flash_attention` kernel for a CUDA tensor (its
-    plain version under `kernels.ops.use_plain()`), `_flash_fwd_math` for a
-    CPU tensor; both give (out, lse).  Backward: `_flash_bwd_rule`."""
+    plain version under `kernels.ops.use_plain()`) and for a tensor on the
+    ``meta`` device (where the kernel's wrapper runs its plain version, so
+    that a traced program takes the card's route), `_flash_fwd_math` for a
+    CPU tensor; both give (out, lse).  Under an active `FlashSaver` the
+    forward's (out, lse) are recorded, or replayed in the recomputation.
+    Backward: `_flash_bwd_rule`."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, q_chunk, k_chunk):
-        if q.is_cuda:
-            from repro_torch.kernels import ops as kops
-            out, lse = kops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                                            causal)
+        saver = _SAVER
+        if saver is not None and saver.replay:
+            out, lse = saver.saved[saver.next]
+            saver.next += 1
         else:
-            out, lse = _flash_fwd_math(q, k, v, causal, 0, None, q_chunk, k_chunk)
+            if saver is not None:
+                saver.computing = True
+            try:
+                if q.is_cuda or q.is_meta:
+                    from repro_torch.kernels import ops as kops
+                    out, lse = kops.flash_attention(q.contiguous(), k.contiguous(),
+                                                    v.contiguous(), causal)
+                else:
+                    out, lse = _flash_fwd_math(q, k, v, causal, 0, None, q_chunk, k_chunk)
+            finally:
+                if saver is not None:
+                    saver.computing = False
+            if saver is not None:
+                saver.saved.append((out, lse))
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.config = (causal, q_chunk, k_chunk)
         return out

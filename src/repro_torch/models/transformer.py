@@ -17,8 +17,10 @@ periods, ``tail_shared`` a list), of xLSTM's mLSTM and sLSTM mixers
 (seamless: a bidirectional encoder, `encode`, over stub frame embeddings,
 and a cross-attention in every decoder block, whose projected memory a
 cache holds as ``cross``) and the VLM (qwen2-vl: a stub patch-embedding
-prefix and M-RoPE's (3, B, S) position ids).  ``remat="dots"`` raises
-`NotImplementedError` (ROADMAP Queue 1 item 5).
+prefix and M-RoPE's (3, B, S) position ids).  ``remat="block"``
+recomputes each period in the backward; ``remat="dots"`` keeps the
+period's matrix products and flash forwards and recomputes the rest
+(`_checkpoint`).
 
 `forward` covers full-sequence and cached (prefill-into-cache, decode) runs
 via the optional cache, and runs under autograd when grad is enabled (the
@@ -37,16 +39,29 @@ the gather returns its input.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from .._tree import tree_map, tree_stack
 from ..parallel.context import gather_params
-from .attention import _self_attention_math, attention, init_attention, init_kv_cache
+from .attention import (
+    FlashSaver,
+    _self_attention_math,
+    attention,
+    flash_forward_computing,
+    init_attention,
+    init_kv_cache,
+)
 from .config import BLOCK_ATTN, BLOCK_MAMBA2, BLOCK_MLSTM, BLOCK_MOE, BLOCK_SLSTM, ModelConfig
 from .ffn import ffn, init_ffn
 from .layers import (
@@ -350,6 +365,52 @@ def _unstack(tree, n: int) -> List[Any]:
     return [tree_map(lambda k: parts[k][i], where) for i in range(n)]
 
 
+_aten = torch.ops.aten
+#: The matrix products that ``remat="dots"`` keeps (`dots_saveable`'s
+#: dot_generals).
+_DOTS = (_aten.mm, _aten.addmm, _aten.bmm, _aten.baddbmm)
+REMATS = ("none", "block", "dots")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Keep a matrix product's output, recompute everything else; a flash
+    forward is kept whole by its `FlashSaver`, so its own ops are not."""
+    if getattr(op, "_overloadpacket", None) in _DOTS and not flash_forward_computing():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+@contextlib.contextmanager
+def _both(first, second):
+    with first, second:
+        yield
+
+
+def _dots_contexts():
+    """The forward's and the recomputation's contexts of one ``"dots"``
+    region: the selective-checkpoint caches of its products, and a
+    `FlashSaver` for its flash forwards."""
+    saver = FlashSaver()
+    forward_ctx, recompute_ctx = create_selective_checkpoint_contexts(_dots_policy)
+    return (_both(forward_ctx, saver.active(replay=False)),
+            _both(recompute_ctx, saver.active(replay=True)))
+
+
+def _checkpoint(cfg: ModelConfig):
+    """How a remat'd region runs: None where nothing is recomputed (``remat
+    ="none"``, or no gradient is taken), else `torch.utils.checkpoint`,
+    recomputing the region whole (``"block"``) or all but its matrix
+    products and flash forwards (``"dots"``, the reference's
+    `jax.checkpoint_policies.dots_saveable`)."""
+    if cfg.remat not in REMATS:
+        raise ValueError(f"remat={cfg.remat!r}: one of {REMATS}")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return None
+    if cfg.remat == "block":
+        return functools.partial(checkpoint, use_reentrant=False)
+    return functools.partial(checkpoint, use_reentrant=False, context_fn=_dots_contexts)
+
+
 def forward(
     params: Dict,
     tokens: Optional[torch.Tensor],       # (B, S) int; None if embeds given
@@ -375,11 +436,10 @@ def forward(
     ``bf16_cotangent`` places the reference's barriers; both shape the
     backward only.  ``hoist_rope`` computes the RoPE tables once a forward.
     ``psum_barrier`` is accepted and ignored (it shapes the reference's
-    compiled tensor-parallel program).  ``remat="dots"`` raises
-    `NotImplementedError`.
+    compiled tensor-parallel program).  ``remat="dots"`` checkpoints each
+    period keeping its matrix products and flash forwards (`_checkpoint`).
     """
-    if cfg.remat not in ("none", "block"):
-        raise NotImplementedError(f"remat={cfg.remat!r}: ROADMAP Queue 1 item 5")
+    remat = _checkpoint(cfg)
     cd = dtype_of(cfg.compute_dtype)
     layout = stack_layout(cfg)
     if input_embeds is not None:
@@ -395,7 +455,6 @@ def forward(
     index = cache["index"] if cache is not None else None
     rope_cache = rope_tables(cfg, positions) if cfg.hoist_rope else None
 
-    remat = cfg.remat == "block" and torch.is_grad_enabled()
     aux = None
     shared = params.get("shared_attn") if layout.shared_attn else None
     layers = _unstack(params["blocks"], layout.n_full)
@@ -407,7 +466,7 @@ def forward(
                 sc = tree_map(lambda t: t[i], cache["shared"])
         args = (x, bp, shared, cfg, layout.period_kinds, positions, cslice, sc, index,
                 encoder_out, rope_cache)
-        x, a = checkpoint(_period, *args, use_reentrant=False) if remat else _period(*args)
+        x, a = remat(_period, *args) if remat else _period(*args)
         aux = _add(aux, a)
     shared_at = _tail_shared_at(cfg, layout)
     if layout.tail:
@@ -454,19 +513,15 @@ def _encoder_block(x, block, cfg, positions):
 
 def encode(params: Dict, input_embeds: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Bidirectional encoder over stub frontend embeddings (B, S_enc, d):
-    a loop over the stacked encoder blocks, each under
-    `torch.utils.checkpoint` when ``remat="block"`` and grad is on, then the
-    encoder's final norm."""
-    if cfg.remat not in ("none", "block"):
-        raise NotImplementedError(f"remat={cfg.remat!r}: ROADMAP Queue 1 item 5")
+    a loop over the stacked encoder blocks, each checkpointed as ``remat``
+    says (`_checkpoint`) when grad is on, then the encoder's final norm."""
+    remat = _checkpoint(cfg)
     x = input_embeds.to(dtype_of(cfg.compute_dtype))
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-    remat = cfg.remat == "block" and torch.is_grad_enabled()
     for block in _unstack(params["encoder"]["blocks"], cfg.n_encoder_layers):
         args = (x, block, cfg, positions)
-        x = (checkpoint(_encoder_block, *args, use_reentrant=False) if remat
-             else _encoder_block(*args))
+        x = remat(_encoder_block, *args) if remat else _encoder_block(*args)
     return fused_rms_norm(x, gather_params(params["encoder"]["final_norm"])["scale"],
                           cfg.norm_eps)
 

@@ -306,8 +306,10 @@ def gather_tree(tree) -> Any:
 def batch_mesh_dims(batch: Dict[str, torch.Tensor], mesh, strat: ShardingStrategy,
                     n_microbatch: int = 1) -> Tuple[int, ...]:
     """The mesh dims that cut each microbatch's rows under `batch_specs`:
-    the data-parallel dims, or none where the rows do not divide over them."""
-    rows = batch["targets"].shape[0] // n_microbatch
+    the data-parallel dims, or none where the rows do not divide over them.
+    The rows are those of ``targets`` (a train batch) or ``tokens`` (a
+    serving batch)."""
+    rows = batch["targets" if "targets" in batch else "tokens"].shape[0] // n_microbatch
     spec = batch_specs({"targets": torch.empty((rows, 1), device="meta")}, mesh,
                        strat)["targets"]
     return tuple(k for k, pl in enumerate(placements(spec, mesh)) if pl.is_shard())

@@ -10,6 +10,14 @@ VLM through the engine as text (the same id on all three M-RoPE axes).
 Everything runs on ``device`` (default ``"cuda"``); the cache (K/V, and
 the conv windows and SSM states of a hybrid stack) is updated in place.  The step functions run without autograd: their logits
 carry no graph.
+
+Given a ``mesh``, the step functions serve data-parallel over the batch:
+the parameters are DTensors placed by `parallel.sharding.param_specs`,
+each rank runs its rows of the batch (`parallel.sharding.local_batch`)
+and holds the cache of those rows, and the model gathers each period's
+parameters where it uses them (`parallel.context.gather_params`), as the
+sharded train step does.  The ranks along the other mesh dims repeat the
+same work: tensor-parallel compute is not done (ROADMAP Queue 1 item 14a).
 """
 
 from __future__ import annotations
@@ -25,10 +33,30 @@ import torch
 from repro_torch._tree import tree_map
 from repro_torch.models import ModelConfig, forward, init_cache, logits_fn
 from repro_torch.models.transformer import encode, reset_slot
+from repro_torch.parallel.context import activation_sharding, gather_params
+from repro_torch.parallel.sharding import batch_mesh_dims, default_strategy, local_batch
+
+
+def _on_mesh(step, cfg: ModelConfig, mesh, strategy):
+    """``step`` run on ``mesh`` (see the module's docstring): the batch cut
+    to this rank's rows, the head gathered once (a tied embedding serves
+    the lookup too), under the sharding context."""
+    strategy = strategy or default_strategy(mesh)
+    head = "embed" if cfg.tie_embeddings else "unembed"
+
+    def sharded(params, *rest):
+        *state, batch = rest
+        cut = batch_mesh_dims(batch, mesh, strategy)
+        batch = local_batch(batch, mesh, strategy)
+        with activation_sharding(mesh, strategy, batch_dims=cut):
+            params = dict(params, **gather_params({head: params[head]}))
+            return step(params, *state, batch)
+
+    return sharded
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: int, cross_len: int = 0,
-                      device="cuda"):
+                      device="cuda", mesh=None, strategy=None):
     """(params, batch) -> (cache, last_token_logits).
 
     batch: {"tokens": (B,S)} (+ encoder_embeds / vision_embeds / positions).
@@ -36,7 +64,9 @@ def make_prefill_step(cfg: ModelConfig, max_len: int, cross_len: int = 0,
     stack prefill from a zero state through the chunked scan; an
     encoder-decoder's ``encoder_embeds`` are encoded and their projected K/V
     fill the cache's ``cross`` part, ``cross_len`` long (the encoder's
-    length).
+    length).  With a ``mesh`` (``strategy`` by default
+    `default_strategy(mesh)`) the batch is the whole one and the cache the
+    rank's rows of it.
     """
 
     @torch.no_grad()
@@ -51,18 +81,26 @@ def make_prefill_step(cfg: ModelConfig, max_len: int, cross_len: int = 0,
                                    vision_embeds=batch.get("vision_embeds"))
         return cache, logits_fn(params, hidden[:, -1:], cfg)
 
-    return prefill
+    if mesh is None:
+        return prefill
+    return _on_mesh(prefill, cfg, mesh, strategy)
 
 
-def make_decode_step(cfg: ModelConfig):
-    """(params, cache, tokens (B,1)) -> (cache, logits (B,1,V))."""
+def make_decode_step(cfg: ModelConfig, mesh=None, strategy=None):
+    """(params, cache, tokens (B,1)) -> (cache, logits (B,1,V)).  With a
+    ``mesh`` the tokens are the whole batch's, and the cache and the logits
+    the rank's rows of it."""
 
     @torch.no_grad()
     def decode(params, cache, tokens):
         hidden, cache, _ = forward(params, tokens, cfg, cache=cache)
         return cache, logits_fn(params, hidden, cfg)
 
-    return decode
+    if mesh is None:
+        return decode
+    step = _on_mesh(lambda params, cache, batch: decode(params, cache, batch["tokens"]),
+                    cfg, mesh, strategy)
+    return lambda params, cache, tokens: step(params, cache, {"tokens": tokens})
 
 
 def sample(logits: torch.Tensor, generator: Optional[torch.Generator],

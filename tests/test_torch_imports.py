@@ -42,7 +42,13 @@ def test_every_submodule_imports_without_jax_or_repro():
             "repro_torch.parallel.moe_ep", "repro_torch.parallel.pipeline",
             "repro_torch.parallel.collectives", "repro_torch.runtime",
             "repro_torch.runtime.elastic", "repro_torch.runtime.fault_tolerance",
-            "repro_torch.runtime.straggler"} <= set(names)
+            "repro_torch.runtime.straggler", "repro_torch.kernels.scope",
+            "repro_torch.launch", "repro_torch.launch.roofline", "repro_torch.launch.plans",
+            "repro_torch.launch.analytic", "repro_torch.launch.specs",
+            "repro_torch.launch.mesh", "repro_torch.launch.op_stats",
+            "repro_torch.launch.dryrun", "repro_torch.launch.hillclimb", "repro_torch.core",
+            "repro_torch.core.ga", "repro_torch.core.shard_search",
+            "repro_torch.core.adaptation"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"

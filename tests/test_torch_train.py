@@ -200,13 +200,15 @@ def test_lm_loss_and_grads_match_jax(arch, S):
 
 
 def test_loss_chunk_microbatch_and_remat_agree():
-    """loss_chunk, n_microbatch=2 and remat none/block change how the loss
-    and gradients are computed, not their values."""
+    """loss_chunk, n_microbatch=2 and remat none/block/dots change how the
+    loss and gradients are computed, not their values; an unknown remat
+    raises."""
     _, tcfg, _, tparams = _models("granite-3-2b")
     batch = _tbatch(_batch(2, 16, seed=3))
     base_l, _, base_g = _grads_of(tparams, tcfg, batch)
     for cfg, chunk in ((tcfg, 4), (dataclasses.replace(tcfg, remat="none"), 0),
-                       (dataclasses.replace(tcfg, remat="block"), 8)):
+                       (dataclasses.replace(tcfg, remat="block"), 8),
+                       (dataclasses.replace(tcfg, remat="dots"), 0)):
         l, _, g = _grads_of(tparams, cfg, batch, loss_chunk=chunk)
         np.testing.assert_allclose(float(l.detach()), float(base_l.detach()), **LOSS_TOL)
         for (path, a), (_, b) in zip(tree_items(g), tree_items(base_g)):
@@ -219,8 +221,8 @@ def test_loss_chunk_microbatch_and_remat_agree():
         params[n] = state["params"]
     for (path, a), (_, b) in zip(tree_items(params[2]), tree_items(params[1])):
         np.testing.assert_allclose(a.numpy(), b.numpy(), err_msg=path, **TOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmodels.forward(tparams, batch["inputs"], dataclasses.replace(tcfg, remat="dots"))
+    with pytest.raises(ValueError, match="remat"):
+        tmodels.forward(tparams, batch["inputs"], dataclasses.replace(tcfg, remat="all"))
 
 
 def test_bf16_cotangent_barrier():

@@ -191,8 +191,10 @@ def test_module_registers_the_tree():
 def test_unsupported_forward_options_raise():
     _, tcfg, _, tparams = _setup("granite-3-2b")
     toks = torch.zeros((1, 2), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tmodels.forward(tparams, toks, dataclasses.replace(tcfg, remat="dots"))
+    with pytest.raises(ValueError, match="remat"):
+        tmodels.forward(tparams, toks, dataclasses.replace(tcfg, remat="all"))
+    dots, _, _ = tmodels.forward(tparams, toks, dataclasses.replace(tcfg, remat="dots"))
+    assert torch.equal(dots, tmodels.forward(tparams, toks, tcfg)[0])
     # accepted and ignored in inference
     loose = dataclasses.replace(tcfg, remat="none", psum_barrier=True, bf16_cotangent=True)
     a, _, _ = tmodels.forward(tparams, toks, loose)

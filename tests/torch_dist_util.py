@@ -931,3 +931,89 @@ def check_optimizer(results, name):
         assert list(got["params"]) == list(plain_params)
         for p, want in plain_params.items():
             np.testing.assert_allclose(got["params"][p], want, atol=2.5e-4, rtol=0, err_msg=p)
+
+
+# ----------------------------------------------------------------- launch --
+# The reduced granite's train cell of the launch tests: (8, 256) tokens.
+LAUNCH_BATCH, LAUNCH_SEQ = 8, 256
+
+
+def rank_op_stats(rank, world, workdir, device_type):
+    """One sharded train step of the reduced granite on (world / 2, 2),
+    seeded weights and tokens, under `launch.op_stats.OpStats`: the
+    tally's row (its wire bytes are what the collectives moved)."""
+    import torch
+
+    from repro_torch.launch.dryrun import build_step
+    from repro_torch.launch.op_stats import OpStats
+    from repro_torch.launch.plans import CellPlan
+    from repro_torch.models import ShapeConfig
+    from repro_torch.parallel.comm import mesh_device
+    from repro_torch.runtime.elastic import MeshPlan
+
+    mesh = MeshPlan((world // 2, 2), ("data", "model")).build(device_type=device_type)
+    device = mesh_device(mesh)
+    shape = ShapeConfig("train_4k", "train", LAUNCH_SEQ, LAUNCH_BATCH)
+    run, _ = build_step(granite_cut("torch"), shape, mesh, CellPlan(), device=device,
+                        generator=torch.Generator(device).manual_seed(0))
+    with OpStats(mesh) as tally:
+        loss = run()
+    return dict(tally.row(), loss=float(loss))
+
+
+def jax_hlo_stats(workdir, mesh_shape):
+    """The reference's train step of the reduced granite at (LAUNCH_BATCH,
+    LAUNCH_SEQ), lowered and compiled as its dry run does
+    (`repro.launch.dryrun._lower_train`) on a ``mesh_shape`` ("data",
+    "model") mesh of host devices: `hlo_stats.module_stats` of it."""
+    import repro.launch.dryrun as jdry          # sets the host device count first
+
+    import jax
+    from jax.sharding import Mesh
+
+    from repro.launch.hlo_stats import module_stats
+    from repro.launch.plans import CellPlan
+    from repro.launch.specs import train_batch_specs
+    from repro.models import ShapeConfig
+
+    cfg = granite_cut("jax")
+    shape = ShapeConfig("train_4k", "train", LAUNCH_SEQ, LAUNCH_BATCH)
+    jdry.input_specs = lambda arch, name: {"batch": train_batch_specs(cfg, shape)}
+    n = int(np.prod(mesh_shape))
+    mesh = Mesh(np.array(jax.devices()[:n]).reshape(mesh_shape), ("data", "model"))
+    with mesh:
+        compiled = jdry._lower_train(cfg, shape, mesh, CellPlan()).compile()
+    return module_stats(compiled.as_text(), n)
+
+
+def rank_serve_on_a_mesh(rank, world, workdir, device_type):
+    """The reduced granite served on (world / 2, 2) by the steps' mesh form
+    (`serve.engine.make_prefill_step` / `make_decode_step` with ``mesh=``):
+    a prefill of (4, 8) tokens and three greedy decode steps, each fed the
+    unsharded run's tokens; (this rank's logits, the same rows of the
+    unsharded steps' logits) of each step."""
+    import torch
+
+    from repro_torch.models import init_lm
+    from repro_torch.parallel.sharding import default_strategy, distribute_tree, param_specs
+    from repro_torch.runtime.elastic import MeshPlan
+    from repro_torch.serve.engine import make_decode_step, make_prefill_step
+
+    mesh = MeshPlan((world // 2, 2), ("data", "model")).build(device_type=device_type)
+    cfg = granite_cut("torch")
+    params = init_lm(torch.Generator("cpu").manual_seed(0), cfg, device="cpu")
+    placed = distribute_tree(params, param_specs(params, mesh, default_strategy(mesh)), mesh)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, 64, size=(4, 8))
+                              .astype(np.int32))
+    rows = slice(mesh.get_coordinate()[0] * 2, mesh.get_coordinate()[0] * 2 + 2)
+    cache_w, whole = make_prefill_step(cfg, 16, device="cpu")(params, {"tokens": tokens})
+    cache_m, mine = make_prefill_step(cfg, 16, device="cpu", mesh=mesh)(placed,
+                                                                        {"tokens": tokens})
+    pairs = [(mine, whole[rows])]
+    decode_w, decode_m = make_decode_step(cfg), make_decode_step(cfg, mesh=mesh)
+    for _ in range(3):
+        nxt = torch.argmax(whole, -1)
+        cache_w, whole = decode_w(params, cache_w, nxt)
+        cache_m, mine = decode_m(placed, cache_m, nxt)
+        pairs.append((mine, whole[rows]))
+    return [(to_np(a), to_np(b)) for a, b in pairs]
