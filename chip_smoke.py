@@ -31,7 +31,11 @@ granite training job through a checkpoint: stopped after a save, resumed by
 a fresh `Trainer`, it must restore every leaf bit for bit and repeat the
 stopped job's next loss bit for bit; the same checkpoint is then resumed a
 second time through `runtime.elastic.ElasticSupervisor` onto a (1, 1)
-mesh, bit for bit again.  ``adapt`` runs the paper's adaptation flow
+mesh, bit for bit again, and a third time by the move that the port's LP
+chooses on the reference demo's four pods (``live_move``: Steps 5 and 7
+through `core.cluster.FleetScheduler`, the move executed by
+`fleet.elastic_bridge.LiveElasticBackend`), bit for bit, its measured
+phases printed beside the fleet simulator's.  ``adapt`` runs the paper's adaptation flow
 for granite-3-2b's train cell on the 256-H100 production mesh (analysis,
 GA plan search, sizing and the meta dry run of the chosen plan, in a
 host process started with the run) and its verification step on the
@@ -131,9 +135,11 @@ DBRX_SERVE_LAYERS, DBRX_REQUESTS, DBRX_TRAIN_LAYERS, DBRX_TRAIN_STEPS, DBRX_CUT_
 # step at 2 x 4096 tokens, forward 1.2 s and remat's forward and backward
 # 5.8 s (`slstm_layer`, NVIDIA H100 80GB HBM3), so a 48-block step is about
 # 50 s, and the phase's 3 steps, a host-timed and a profiled one would take
-# some 270 s of the run's 600), and steps; the kernel-vs-plain and
-# migration cut (one stacked period, and one mLSTM tail block).
-XLSTM_REQUESTS, XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_STEPS, XLSTM_CUT_LAYERS = 16, 8, 3, 9
+# some 270 s of the run's 600), and steps (2: an 8-block step takes 12-16 s
+# on the host's sLSTM loop, and the third step paid for relocate_train's
+# live move); the kernel-vs-plain and migration cut (one stacked period,
+# and one mLSTM tail block).
+XLSTM_REQUESTS, XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_STEPS, XLSTM_CUT_LAYERS = 16, 8, 2, 9
 # relocate_train: granite-3-2b layers of the moved job, its steps, the
 # checkpoint interval, and the step after which it is stopped.  The state
 # is 0.61 GB a layer (bf16 weights, fp32 AdamW m and v) and 1.0 GB for the
@@ -397,6 +403,7 @@ MAIN_PATH_COUNTS = {
                           ssm_scan=0),
     "relocate_train": dict(rms_norm=5 + 4, decode_attention=0, flash_attention=2 + 2,
                            ssm_scan=0),
+    "live_move": dict(rms_norm=5 + 4, decode_attention=0, flash_attention=2 + 2, ssm_scan=0),
     "adapt_train": dict(rms_norm=81 + 80, decode_attention=0, flash_attention=40 + 40,
                         ssm_scan=0),
     "adapt_decode": dict(rms_norm=81, decode_attention=40, flash_attention=0, ssm_scan=0),
@@ -2444,6 +2451,8 @@ def phase_relocate_train(torch, device, cfg, phase="relocate_train"):
                     and torch.equal(a.cpu(), b), f"{phase}: (a) leaf {p} differs")
         counters = [p for p, t in mine if t.dtype == torch.int32]
         elastic = resume_elastic(torch, phase, cfg, root, moved, theirs, ran[RELOCATE_EVERY + 1])
+        live, live_launches = live_move(torch, phase, cfg, root, moved, theirs,
+                                        ran[RELOCATE_EVERY + 1])
         del theirs
         free()
         zero_counts()
@@ -2504,8 +2513,8 @@ def phase_relocate_train(torch, device, cfg, phase="relocate_train"):
          a_leaves_bit_equal=True, b_first_loss_bit_equal=True,
          c_deterministic=deterministic, c_spread=spread, c_later_abs_diff=later,
          control=dict(checkpoint_step=cstart, loss=control_loss, fails_b=True),
-         elastic=elastic, launches=launches)
-    return launches
+         elastic=elastic, live_move=live, launches=launches)
+    return launches, live_launches
 
 
 def resume_elastic(torch, phase, cfg, root, moved, saved, want_loss):
@@ -2541,6 +2550,138 @@ def resume_elastic(torch, phase, cfg, root, moved, saved, want_loss):
     return dict(mesh_shape=list(mesh.shape), resumed_at_step=step, restore_seconds=restore_s,
                 leaves_bit_equal=True, first_loss=loss, first_loss_bit_equal=True,
                 rescales=sup.rescales)
+
+
+# The demo fleet of examples/reconfiguration_demo.py: pods (name, chips,
+# $ a chip-hour, the reference's TPU figures), and the jobs admitted FCFS.
+DEMO_PODS = (("tokyo-a", 256, 1.2), ("tokyo-b", 256, 1.2), ("osaka-spot", 256, 0.85),
+             ("osaka-v5p", 256, 2.1))
+DEMO_JOBS, DEMO_WINDOW, DEMO_RELEASED = 14, 24, (1, 2)
+
+
+def demo_trial():
+    """Steps 5 and 7 of the paper through the port's LP on the demo fleet:
+    the jobs admitted FCFS by a `FleetScheduler`, jobs 1 and 2 released,
+    then the reconfiguration trial over the most recent 24.  Returns the
+    scheduler, the trial and the admissions."""
+    import numpy as np
+    from repro_torch.core.cluster import FleetScheduler, JobSpec, PodSpec, build_fleet_topology
+
+    sched = FleetScheduler(build_fleet_topology([PodSpec(*p) for p in DEMO_PODS]),
+                           reconfig_every=10 ** 9, window=DEMO_WINDOW)
+    rng = np.random.default_rng(0)
+    placed = []
+    for i in range(DEMO_JOBS):
+        fast = i % 3 == 0
+        t = float(rng.uniform(0.8, 2.0))
+        placed.append(sched.submit(JobSpec(
+            job_id=i, arch="granite-3-2b", shape="train_4k", chips=64, step_time_s=t,
+            step_slo_s=t + (0.1 if fast else 2.0), budget_usd_month=None if fast else 90_000.0)))
+    for done in DEMO_RELEASED:
+        sched.engine.release(done)
+    return sched, sched.recon.plan(sched.engine.recent(DEMO_WINDOW)), placed
+
+
+def live_move(torch, phase, cfg, root, moved, saved, want_loss):
+    """One move chosen by the port's LP (`demo_trial`'s first), executed on
+    the card through `fleet.elastic_bridge.LiveElasticBackend`: the job is
+    registered with the phase's checkpoint directory and no live state, so
+    `execute_move`'s snapshot takes the latest committed checkpoint; the
+    restore rebuilds its (1, 1) plan over the one-rank NCCL group and
+    `reshard_restore`s it (stop-and-copy; the transfer is priced over the
+    move's links).  Every leaf a CUDA DTensor equal to the saved one bit
+    for bit; the first resumed step's loss ``want_loss`` bit for bit, and
+    its launches one train step's.  Control: a job whose directory holds
+    no committed checkpoint cannot be snapshotted.  The measured phases
+    stand beside `SimulatedElasticBackend`'s for the same request and
+    checkpoint bytes.  Returns (the record, the resumed step's launches)."""
+    import tempfile
+
+    import scipy
+    import scipy.optimize
+    from repro_torch._tree import tree_items
+    from repro_torch.ckpt import checkpoint_nbytes, latest_checkpoint
+    from repro_torch.fleet.elastic_bridge import (LiveElasticBackend, SimulatedElasticBackend,
+                                                  execute_move)
+    from repro_torch.runtime.elastic import MeshPlan
+    from repro_torch.train import Trainer, TrainerConfig
+    from torch.distributed.tensor import DTensor
+
+    t0 = time.perf_counter()
+    sched, res, placed = demo_trial()
+    lp_s = time.perf_counter() - t0
+    require(res.n_moved > 0 and res.s_after <= res.s_before,
+            f"{phase}: the LP's trial moved {res.n_moved} jobs, S {res.s_before} -> "
+            f"{res.s_after}")
+    mv = res.moves[0]
+    req = sched.engine.placed[mv.req_id].request
+    plan = MeshPlan((1, 1), ("data", "model"))
+    one_rank_mesh(torch)
+    backend = LiveElasticBackend()
+    require(backend.name == "live", f"{phase}: the backend is {backend.name}")
+    backend.register_job(mv.req_id, str(root), cfg, moved.optimizer, plan)
+    path = latest_checkpoint(str(root))
+    t0 = time.perf_counter()
+    phases = execute_move(backend, req, mv)
+    torch.cuda.synchronize()
+    move_s = time.perf_counter() - t0
+    resumed = backend.resumed[mv.req_id]
+    require(resumed.plan.shape == (1, 1) and tuple(resumed.mesh.shape) == (1, 1)
+            and resumed.step == RELOCATE_EVERY + 1,
+            f"{phase}: the live move resumed at step {resumed.step} on {resumed.plan.shape}")
+    mine = list(tree_items(resumed.state))
+    require([p for p, _ in mine] == [p for p, _ in saved], f"{phase}: the live move's leaves")
+    for (p, a), (_, b) in zip(mine, saved):
+        require(isinstance(a, DTensor) and a.to_local().is_cuda and a.dtype == b.dtype
+                and torch.equal(a.full_tensor().cpu(), b),
+                f"{phase}: the live move's leaf {p} differs from the saved one")
+    tcfg = TrainerConfig(steps=resumed.step + 1, log_every=10 ** 9, loss_chunk=TRAIN_LOSS_CHUNK)
+    job = Trainer(cfg, tcfg, moved.data, mesh=resumed.mesh, strategy=resumed.strategy,
+                  optimizer=moved.optimizer)
+    zero_counts()
+    job.run(state=resumed.state, start_step=resumed.step)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check_counts(f"{phase}: the live move's step", launches, launches_per_step(cfg, train=True),
+                 1)
+    loss = job.metrics_log[0]["loss"]
+    require(loss == want_loss, f"{phase}: the live move's step {resumed.step} loss {loss!r} != "
+                               f"{want_loss!r}")
+    del job, resumed, mine
+    backend.release(mv.req_id)
+
+    with tempfile.TemporaryDirectory(dir=root.parent) as empty:
+        backend.register_job(-1, empty, cfg, moved.optimizer, plan)
+        try:
+            backend.snapshot(dataclasses.replace(req, req_id=-1), mv, 0.0)
+            refused = False
+        except FileNotFoundError:
+            refused = True
+    require(refused, f"{phase}: a job with no committed checkpoint was snapshotted")
+
+    payload, shards = checkpoint_nbytes(path)
+    sim = SimulatedElasticBackend()
+    sim.attach_job(mv.req_id, state_bytes=payload)
+    predicted = sim.predict_phases(req, mv)
+    simulated = execute_move(sim, req, mv)
+    record = dict(
+        lp=dict(s_before=res.s_before, s_after=res.s_after, gain=res.gain, n_moved=res.n_moved,
+                moves=[dict(job=m.req_id, source=m.old.node.site_id,
+                            destination=m.new.node.site_id, ratio=m.ratio) for m in res.moves],
+                admitted=placed, solver=res.solver.status if res.solver else None,
+                seconds=lp_s, scipy=scipy.__version__,
+                scipy_milp=hasattr(scipy.optimize, "milp")),
+        moved_job=mv.req_id, source=mv.old.node.site_id, destination=mv.new.node.site_id,
+        checkpoint=Path(path).name, payload_bytes=payload, shard_files=shards,
+        measured=dataclasses.asdict(phases), execute_seconds=move_s,
+        simulated=dataclasses.asdict(simulated),
+        predicted=dict(mbits=predicted[0], snapshot_s=predicted[1], restore_s=predicted[2]),
+        restore_over_simulated=phases.restore_s / simulated.restore_s,
+        mesh_shape=[1, 1], resumed_at_step=RELOCATE_EVERY + 1, leaves_bit_equal=True,
+        first_loss=loss, first_loss_bit_equal=True, launches=launches,
+        control=dict(no_checkpoint_refused=True))
+    emit(phase="live_move", **record)
+    return record, launches
 
 
 # -------------------------------------------------------------------- MoE --
@@ -2786,6 +2927,7 @@ def main(argv=None):
              "serve_seamless": (seamless, False), "train_seamless": (seamless, True),
              "serve_qwen2vl": (qwen, False), "train_qwen2vl": (qwen, True),
              "relocate_train": (cut(granite, RELOCATE_LAYERS), True),
+             "live_move": (cut(granite, RELOCATE_LAYERS), True),
              "adapt_train": (granite, True), "adapt_decode": (granite, False)}
     launches = {path: {} for path in paths}
     seconds = {}
@@ -2868,8 +3010,9 @@ def main(argv=None):
                 "train_qwen2vl", data=StubLM(qwen, TRAIN_SEQ, 0, patches=QWEN_PATCHES),
                 loss_chunk=QWEN_LOSS_CHUNK)
         if run("relocate_train"):
-            launches["relocate_train"] = timed("relocate_train", phase_relocate_train, torch,
-                                               device, paths["relocate_train"][0])
+            launches["relocate_train"], launches["live_move"] = timed(
+                "relocate_train", phase_relocate_train, torch, device,
+                paths["relocate_train"][0])
         if run("timing"):
             kernels = timed("timing", phase_timing, torch, device, launches, resources)
             emit(phase="timing", kernels=kernels)

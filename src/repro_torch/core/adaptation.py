@@ -12,17 +12,16 @@ Paper step → the port's action:
                                   roofline estimator — `search`
   Step 4  リソース量調整         → cards needed for memory + SLO —
                                   `size_resources`
-  Step 5  配置場所調整           → LP admission onto the fleet — `place`
+  Step 5  配置場所調整           → LP admission onto the fleet through a
+                                  `FleetScheduler` — `place`
   Step 6  実行ファイル配置と検証  → the port's step traced on meta on the
                                   production mesh (`verify`), and run for
                                   real on the card (`verify_on_card`)
-  Step 7  運用中再構成           → periodic fleet reconfiguration —
-                                  `operate`
+  Step 7  運用中再構成           → periodic `FleetScheduler` reconfiguration,
+                                  migrations via `runtime.elastic` — `operate`
 
-Steps 5 and 7 need the fleet scheduler and the LP core (`core/cluster.py`,
-placement, reconfig, topology, apps, lp, solver, simplex, satisfaction,
-migration), which the port takes with ROADMAP Queue 1 item 17; until then
-a controller given a scheduler, and `place`, raise `NotImplementedError`.
+Each step is a small, separately testable method; `run_all` chains them for
+one job.
 """
 
 from __future__ import annotations
@@ -35,9 +34,8 @@ from ..launch.plans import CellPlan, plan_for
 from ..launch.roofline import H100_SXM, Hardware
 from ..models import ModelConfig, ShapeConfig
 from ..models.config import BLOCK_ATTN, BLOCK_MAMBA2, BLOCK_MLSTM, BLOCK_MOE
+from .cluster import FleetScheduler, JobSpec
 from .shard_search import PlanSearchResult, search_plan
-
-_ITEM_17 = "the fleet scheduler and the LP core come with ROADMAP Queue 1 item 17"
 
 
 @dataclasses.dataclass
@@ -49,11 +47,9 @@ class Analysis:
 
 
 class AdaptationController:
-    def __init__(self, scheduler=None, mesh_shape: Tuple[int, ...] = (32, 8),
-                 hw: Hardware = H100_SXM):
-        if scheduler is not None:
-            raise NotImplementedError(f"AdaptationController(scheduler=...): {_ITEM_17}")
-        self.scheduler = None
+    def __init__(self, scheduler: Optional[FleetScheduler] = None,
+                 mesh_shape: Tuple[int, ...] = (32, 8), hw: Hardware = H100_SXM):
+        self.scheduler = scheduler
         self.mesh_shape = mesh_shape
         self.hw = hw
         self.hbm_bytes = hw.hbm_bytes
@@ -104,8 +100,10 @@ class AdaptationController:
         return chips
 
     # Step 5 -----------------------------------------------------------
-    def place(self, job) -> Optional[str]:
-        raise NotImplementedError(f"AdaptationController.place: {_ITEM_17}")
+    def place(self, job: JobSpec) -> Optional[str]:
+        if self.scheduler is None:
+            raise ValueError("no FleetScheduler attached")
+        return self.scheduler.submit(job)
 
     # Step 6 -----------------------------------------------------------
     def verify(self, arch: str, shape_name: str, multi_pod: bool = False) -> Dict:
@@ -124,15 +122,24 @@ class AdaptationController:
 
     # Step 7 -----------------------------------------------------------
     def operate(self) -> List:
-        """One reconfiguration window through the fleet scheduler; with no
-        scheduler there is nothing to reconfigure, as in the reference."""
-        return []
+        """One reconfiguration window through the scheduler's configured
+        policy + migration executor; returns the scheduled migrations."""
+        if self.scheduler is None:
+            return []
+        sched = self.scheduler
+        res = sched.policy.plan(sched.engine, sched.engine.recent(sched.window))
+        if not res.accepted:
+            return []
+        schedule = sched.executor.execute(sched.engine, res)
+        sched.migrations.extend(schedule.items)
+        return schedule.items
 
     # ------------------------------------------------------------------
     def run_all(self, cfg: ModelConfig, shape: ShapeConfig,
                 job_id: int = 0, step_slo_factor: float = 1.5) -> Dict:
-        """Steps 1-4 for one job; without a scheduler nothing is placed
-        (``"pod": None``), as in the reference."""
+        """Steps 1-5 for one job: the job placed by the scheduler (its pod,
+        or None when it is rejected); without a scheduler nothing is placed
+        (``"pod": None``)."""
         analysis = self.analyze(cfg)
         offload = self.extract_offloadable(analysis)
         search = self.search(cfg, shape)
@@ -140,8 +147,12 @@ class AdaptationController:
         t = estimate(cfg, shape,
                      (max(chips // self.mesh_shape[-1], 1),
                       min(chips, self.mesh_shape[-1])), search.best_plan, hw=self.hw).t_step
+        job = JobSpec(job_id=job_id, arch=cfg.name, shape=shape.name,
+                      chips=chips, step_time_s=t, step_slo_s=t * step_slo_factor,
+                      budget_usd_month=None)
+        pod = self.place(job) if self.scheduler else None
         return {"analysis": analysis, "offload": offload, "search": search,
-                "chips": chips, "t_step": t, "pod": None}
+                "chips": chips, "t_step": t, "pod": pod}
 
 
 def _plan_row(plan: CellPlan) -> Dict:

@@ -48,7 +48,24 @@ def test_every_submodule_imports_without_jax_or_repro():
             "repro_torch.launch.mesh", "repro_torch.launch.op_stats",
             "repro_torch.launch.dryrun", "repro_torch.launch.hillclimb", "repro_torch.core",
             "repro_torch.core.ga", "repro_torch.core.shard_search",
-            "repro_torch.core.adaptation"} <= set(names)
+            "repro_torch.core.adaptation",
+            "repro_torch.core.apps", "repro_torch.core.cluster", "repro_torch.core.lp",
+            "repro_torch.core.migration", "repro_torch.core.placement",
+            "repro_torch.core.reconfig", "repro_torch.core.satisfaction",
+            "repro_torch.core.simplex", "repro_torch.core.simulation",
+            "repro_torch.core.solver", "repro_torch.core.topology", "repro_torch.fleet",
+            "repro_torch.fleet.elastic_bridge", "repro_torch.fleet.events",
+            "repro_torch.fleet.executor", "repro_torch.fleet.obs",
+            "repro_torch.fleet.obs.calibration", "repro_torch.fleet.obs.metrics",
+            "repro_torch.fleet.obs.provenance", "repro_torch.fleet.obs.slo",
+            "repro_torch.fleet.obs.trace", "repro_torch.fleet.planner",
+            "repro_torch.fleet.planner.decomposed", "repro_torch.fleet.planner.forecast",
+            "repro_torch.fleet.planner.horizon", "repro_torch.fleet.planner.migration_cost",
+            "repro_torch.fleet.planner.partition", "repro_torch.fleet.policies",
+            "repro_torch.fleet.runtime", "repro_torch.fleet.scenarios",
+            "repro_torch.fleet.serving", "repro_torch.fleet.serving.backend",
+            "repro_torch.fleet.serving.profile", "repro_torch.fleet.serving.workload",
+            "repro_torch.fleet.telemetry"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}:\n"

@@ -253,11 +253,34 @@ def test_run_all_without_a_scheduler_is_the_references():
 
 
 def test_steps_five_and_seven_wait_for_item_17():
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tadapt.AdaptationController(scheduler=object())
+    """Steps 5 and 7 (ROADMAP item 17, the LP core and the fleet scheduler)
+    run in the port as in the reference: a controller given each package's
+    `FleetScheduler` places granite's job (`run_all`), admits more, and one
+    `operate` window schedules the same migrations.  The controller keeps
+    the card's mesh and constants by default."""
+    from repro.core import cluster as jcl
+    from repro_torch.core import cluster as tcl
+
+    def steps(cl, ctl_of, cfg, shape):
+        pods = [cl.PodSpec("a", 256, 1.2), cl.PodSpec("b", 256, 0.85), cl.PodSpec("c", 256, 2.1)]
+        sched = cl.FleetScheduler(cl.build_fleet_topology(pods), reconfig_every=10 ** 9)
+        ctl = ctl_of(sched)
+        pod = ctl.run_all(cfg, shape, job_id=99)["pod"]
+        placed = [ctl.place(cl.JobSpec(i, "a", "t", chips=64, step_time_s=1.0,
+                                       budget_usd_month=10 ** 9)) for i in range(8)]
+        sched.engine.release(0)
+        moves = [(it.step.move.req_id, it.step.move.new.node.node_id, it.step.move.ratio,
+                  it.duration_s) for it in ctl.operate()]
+        return pod, placed, moves
+
+    t = steps(tcl, lambda s: tadapt.AdaptationController(s, mesh_shape=(16, 16), hw=REF_HW),
+              get_config("granite-3-2b"), SHAPES_BY_NAME["train_4k"])
+    j = steps(jcl, lambda s: jadapt.AdaptationController(s, mesh_shape=(16, 16)),
+              jget_config("granite-3-2b"), JSHAPES["train_4k"])
+    assert t == j and t[0] == "b" and t[2]
     c = tadapt.AdaptationController()
     assert (c.mesh_shape, c.hbm_bytes, c.hw) == ((32, 8), 80e9, troof.H100_SXM)
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(ValueError, match="no FleetScheduler"):
         c.place(None)
 
 

@@ -721,6 +721,73 @@ def check_rescale_restores(ranks):
     assert ranks[0]["local_shapes"][w] == (whole[0], whole[1] // shape[0], whole[2] // 2)
 
 
+def rank_live_bridge(rank, world, workdir, device_type):
+    """The port's twin of the reference's live-bridge smoke
+    (tests/test_elastic_bridge.py::test_live_backend_multidevice_bridge) on
+    ``world`` ranks: reduced granite trains 4 steps on (world / 2, 2) from
+    the port's seed 0 on a pod of ``world`` chips; a planner `Move` onto a
+    pod of world / 2 chips goes through `LiveElasticBackend`.  First its
+    destination dies after the snapshot: `rollback` re-installs the source
+    checkpoint on the source mesh.  Then `execute_move`: snapshot -> mesh
+    resize to (world / 4, 2) -> `reshard_restore`, and 3 more steps."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.cluster import JobSpec, PodSpec, build_fleet_topology
+    from repro_torch.core.migration import Move
+    from repro_torch.core.placement import PlacementEngine
+    from repro_torch.fleet.elastic_bridge import LiveElasticBackend, execute_move
+    from repro_torch.parallel.comm import mesh_device
+    from repro_torch.parallel.sharding import default_strategy, distribute_tree, state_specs
+    from repro_torch.runtime.elastic import MeshPlan
+    from repro_torch.train import Trainer, TrainerConfig, init_state, make_optimizer, state_shapes
+
+    cfg, opt = granite_cut("torch"), make_optimizer("adamw", lr=1e-3)
+    plan = MeshPlan((world // 2, 2), ("data", "model"))
+    mesh = plan.build(device_type=device_type)
+    device = mesh_device(mesh)
+    specs = state_specs(state_shapes(cfg, opt), mesh, default_strategy(mesh))
+    state = init_state(torch.Generator(device).manual_seed(0), cfg, opt, device=device)
+    tcfg = lambda steps: TrainerConfig(steps=steps, log_every=10 ** 9)
+    first = Trainer(cfg, tcfg(ELASTIC_SAVE), Batches(), mesh=mesh, optimizer=opt)
+    state = first.run(state=distribute_tree(state, specs, mesh))
+    saved = bits(state)
+
+    pods = [PodSpec("big", world, 1.2), PodSpec("small", world // 2, 0.5)]
+    engine = PlacementEngine(build_fleet_topology(pods), all_sites=True)
+    req = JobSpec(0, "granite", "t", chips=world // 2, step_time_s=1.0, step_slo_s=None,
+                  budget_usd_month=10 ** 9).request()
+    old = next(c for c in engine.enumerate_feasible(req) if c.node.site_id == "big")
+    engine.commit(req, old)
+    new = next(c for c in engine.enumerate_feasible(req) if c.node.site_id == "small")
+    mv = Move(0, old, new, 1.0)
+
+    ckpt = workdir / "ckpt"
+    ckpt.mkdir(exist_ok=True)
+    backend = LiveElasticBackend()
+    backend.register_job(0, str(ckpt), cfg, opt, plan, device_type=device_type)
+    backend.update_state(0, state, step=ELASTIC_SAVE)
+    snap = backend.snapshot(req, mv, 0.0)
+    backend.rollback(req, mv, snap, 1.0)
+    back = backend.resumed[0]
+    out = {"snapshot": (snap.nbytes, snap.n_shards, snap.mesh_shape, snap.path is not None),
+           "rollback": (back.plan.shape, tuple(back.mesh.shape), back.step,
+                        _same_bits(bits(back.state), saved))}
+    phases = execute_move(backend, req, mv)
+    resumed = backend.resumed[0]
+    out.update(phases=dataclasses.asdict(phases), shape=resumed.plan.shape,
+               mesh_shape=tuple(resumed.mesh.shape), step=resumed.step,
+               in_mesh=resumed.state is not None, losses=[])
+    if resumed.state is not None:
+        out["restored_equal"] = _same_bits(bits(resumed.state), saved)
+        again = Trainer(cfg, tcfg(ELASTIC_SAVE + 3), Batches(), mesh=resumed.mesh,
+                        strategy=resumed.strategy, optimizer=opt)
+        again.run(state=resumed.state, start_step=resumed.step)
+        out["losses"] = [r["loss"] for r in again.metrics_log]
+    return out
+
+
 def _same_bits(a, b):
     return list(a) == list(b) and all(a[p].tobytes() == b[p].tobytes() for p in a)
 
