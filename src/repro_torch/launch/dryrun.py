@@ -23,8 +23,14 @@ has the reference's keys, with ``op_stats`` in place of ``hlo_stats``:
     allocated) and ``argument_bytes`` (rank 0's state, batch and cache).
 
 Serving cells shard as the port serves on a mesh (`serve.engine`): the
-batch's rows over the data axes, each rank's cache its rows whole.  Every
-rank along "model" repeats the same work (ROADMAP Queue 1 item 14a).
+batch's rows over the data axes, each rank's cache its rows of its own kv
+heads.  Training and serving alike, the ranks along "model" split each
+layer's heads, FFN columns and experts, and the vocab where it divides
+(`parallel.context`), so a rank's FLOPs are its share of the step's; the
+Mamba2 and xLSTM mixers and the norms every rank along "model" computes
+alike (ROADMAP item 14a-ii).  A MoE layer's expert rows on meta, where
+there are no router counts, are each data part's even share of the
+buffer (`models.moe._own_rows`).
 
 `verify_cell` is Step 6 of the adaptation flow on the card: the same step
 for real on a (1, 1) mesh of one GPU, with seeded random weights, at a cut
@@ -57,6 +63,7 @@ from .._tree import tree_leaves
 from ..configs import ARCH_IDS, get_config
 from ..models import SHAPES_BY_NAME, ModelConfig, ShapeConfig, init_cache, init_lm
 from ..parallel.comm import local
+from ..parallel.context import activation_sharding
 from ..parallel.sharding import distribute_tree, local_batch, param_specs, state_specs
 from .mesh import close_fake_group, fake_mesh, make_production_mesh, production_shape
 from .op_stats import OpStats
@@ -120,10 +127,12 @@ def build_step(cfg: ModelConfig, shape: ShapeConfig, mesh, plan: CellPlan,
         return (lambda: step(params, batch)[1]), (params, batch)
 
     step = make_decode_step(cfg, mesh=mesh, strategy=strat)
-    # The cache holds this rank's rows: those the step cuts from the tokens.
+    # The cache holds this rank's rows, those the step cuts from the tokens,
+    # of its kv heads.
     rows = local_batch({"tokens": specs["tokens"]}, mesh, strat)["tokens"].shape[0]
     cross = shape.seq_len if cfg.n_encoder_layers else 0
-    cache = init_cache(cfg, rows, shape.seq_len, cross_len=cross, device=device)
+    with activation_sharding(mesh, strat):
+        cache = init_cache(cfg, rows, shape.seq_len, cross_len=cross, device=device)
     # Every slot holds seq_len - 1 entries, and the new token fills the last.
     if real:
         cache["index"].fill_(shape.seq_len - 1)

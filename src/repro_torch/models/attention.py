@@ -23,15 +23,30 @@ above it.
 
 The cache is written IN PLACE: `attention` returns the same ``k``/``v``
 tensors it was given, updated (the reference returns fresh arrays).
+
+Under a sharding context whose tensor-parallel axis has n > 1 ranks the
+heads split over it (`local_heads`), as the reference's rule table cuts
+``wq``/``wk``/``wv`` by columns and ``wo`` by rows: each rank projects
+its ``n_heads / n`` query heads and the kv heads they read, attends over
+them (the kernels run at the local head counts), and its part of ``wo``'s
+product is summed over the axis (`parallel.context.reduce_from_tp`).
+Where ``n_kv_heads`` does not divide by n but n divides by it, several
+ranks share a kv head: each projects that whole head (`tp_part` gathers
+the columns it needs where the rule's cut falls inside a head).  Where the
+query heads do not divide, every rank computes the whole attention, as
+the reference does where its guard leaves the heads whole.  A KV cache
+made under the context (`init_kv_cache`) holds the rank's kv heads.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from ..parallel.context import copy_to_tp, reduce_from_tp, tp_part, tp_rank, tp_size, tp_whole
 from .config import ModelConfig
 from .layers import apply_linear, apply_mrope, apply_rope, apply_rope_tables, dtype_of, init_linear
 
@@ -51,15 +66,83 @@ def init_attention(generator, cfg: ModelConfig, dtype, cross: bool = False,
     }
 
 
+@dataclasses.dataclass(frozen=True)
+class Heads:
+    """The attention heads this rank computes: ``n_q`` query heads from
+    global head ``q0`` and ``n_kv`` kv heads from ``kv0``; ``split`` where
+    they are a part of the layer's (tensor parallelism)."""
+    n_q: int
+    n_kv: int
+    q0: int = 0
+    kv0: int = 0
+    split: bool = False
+
+
+def local_heads(cfg: ModelConfig) -> Heads:
+    """This rank's heads under the active context (all of them outside one,
+    or where the query heads, or the kv heads' sharing, do not divide over
+    the tensor-parallel axis)."""
+    n, hq, hkv = tp_size(), cfg.n_heads, cfg.n_kv_heads
+    if n == 1 or hq % n or (hkv % n and n % hkv):
+        return Heads(hq, hkv)
+    r, q = tp_rank(), hq // n
+    if hkv % n == 0:
+        return Heads(q, hkv // n, r * q, r * (hkv // n), True)
+    return Heads(q, 1, r * q, r * q // (hq // hkv), True)   # n / hkv ranks share a kv head
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
                   device="cuda") -> Dict:
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    shape = (batch, max_len, local_heads(cfg).n_kv, cfg.d_head)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def _split_heads(x, n_heads, d_head):
     return x.reshape(*x.shape[:-1], n_heads, d_head)
+
+
+def _columns(p: Dict, x: torch.Tensor, cd, whole: int, h0: int, nh: int, d_head: int,
+             split: bool) -> torch.Tensor:
+    """``x`` times the columns of heads ``[h0, h0 + nh)`` of the linear
+    ``p`` (``whole`` columns), plus their bias: the rank's part of a
+    column-parallel product where ``split``, else the whole product (a
+    chunk the rule cut gathered, every rank computing it alike)."""
+    if not split:
+        return apply_linear({k: tp_whole(v, -1, whole) for k, v in p.items()}, x, cd)
+    lo, hi = h0 * d_head, (h0 + nh) * d_head
+    return apply_linear({k: tp_part(v, -1, whole, lo, hi) for k, v in p.items()}, x, cd)
+
+
+def project_q(params: Dict, x, cfg: ModelConfig, heads: Heads) -> torch.Tensor:
+    """(B, S, n_q, Dh) queries of this rank's heads; ``x`` as `copy_to_tp`
+    passed it where the heads split."""
+    cd = dtype_of(cfg.compute_dtype)
+    q = _columns(params["wq"], x, cd, cfg.n_heads * cfg.d_head, heads.q0, heads.n_q,
+                 cfg.d_head, heads.split)
+    return _split_heads(q, heads.n_q, cfg.d_head)
+
+
+def project_kv(params: Dict, src, cfg: ModelConfig, heads: Heads):
+    """(B, S, n_kv, Dh) keys and values of this rank's kv heads."""
+    cd = dtype_of(cfg.compute_dtype)
+    whole = cfg.n_kv_heads * cfg.d_head
+    k, v = (_columns(params[w], src, cd, whole, heads.kv0, heads.n_kv, cfg.d_head, heads.split)
+            for w in ("wk", "wv"))
+    return _split_heads(k, heads.n_kv, cfg.d_head), _split_heads(v, heads.n_kv, cfg.d_head)
+
+
+def project_out(params: Dict, out, cfg: ModelConfig, heads: Heads) -> torch.Tensor:
+    """``out`` (B, S, n_q * Dh) through ``wo``: where the heads split, the
+    rank's rows of it, the partial products summed over the
+    tensor-parallel axis, then the bias once."""
+    cd = dtype_of(cfg.compute_dtype)
+    p, whole = params["wo"], cfg.n_heads * cfg.d_head
+    if not heads.split:
+        return apply_linear(dict(p, w=tp_whole(p["w"], 0, whole)), out, cd)
+    lo, hi = heads.q0 * cfg.d_head, (heads.q0 + heads.n_q) * cfg.d_head
+    y = reduce_from_tp(torch.matmul(out.to(cd), tp_part(p["w"], 0, whole, lo, hi).to(cd)))
+    return y + p["b"].to(cd) if "b" in p else y
 
 
 def _rope(cfg: ModelConfig, x, positions, rope_cache=None):
@@ -404,12 +487,14 @@ def attention(
     ``impl`` / ``cfg.attn_impl`` are accepted for parity with the reference
     and not consulted: the kernel is chosen by the tensor's device.
     """
-    cd = dtype_of(cfg.compute_dtype)
     B, S, _ = x.shape
+    heads = local_heads(cfg)
+    if heads.split:
+        x = copy_to_tp(x)
+        kv_input = None if kv_input is None else copy_to_tp(kv_input)
     kv_src = x if kv_input is None else kv_input
-    q = _split_heads(apply_linear(params["wq"], x, cd), cfg.n_heads, cfg.d_head)
-    k = _split_heads(apply_linear(params["wk"], kv_src, cd), cfg.n_kv_heads, cfg.d_head)
-    v = _split_heads(apply_linear(params["wv"], kv_src, cd), cfg.n_kv_heads, cfg.d_head)
+    q = project_q(params, x, cfg, heads)
+    k, v = project_kv(params, kv_src, cfg, heads)
     if kv_input is None:  # RoPE only applies to self-attention
         q = _rope(cfg, q, positions, rope_cache)
         k = _rope(cfg, k, positions, rope_cache)
@@ -440,8 +525,8 @@ def attention(
     else:
         out = _self_attention_math(q, k, v, causal=False)
 
-    out = out.reshape(B, S, cfg.n_heads * cfg.d_head)
-    return apply_linear(params["wo"], out, cd), new_cache
+    out = out.reshape(B, S, heads.n_q * cfg.d_head)
+    return project_out(params, out, cfg, heads), new_cache
 
 
 def prefill_cache(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor, max_len: int) -> Dict:

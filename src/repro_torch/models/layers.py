@@ -5,15 +5,22 @@ leaf names equal the reference's (`repro.models.layers`), ``w`` stored
 ``(d_in, d_out)``.  Random draws take an explicit ``torch.Generator``.
 The gelu and squared-ReLU activations live beside their one user, in
 `ffn.py`.  `layer_norm` is on no model path, as in the reference.
+
+Given the ``vocab`` size under a sharding context whose tensor-parallel
+axis divides it, `embed` and `unembed` are vocab-parallel (`vocab_part`):
+each rank looks up the ids of its vocab slice (the others' rows zero) and
+the lookups are summed over the axis; each rank computes its slice's
+logits.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from ..parallel.context import copy_to_tp, reduce_from_tp, tp_part, tp_rank, tp_size
 from .config import ModelConfig
 
 _DTYPES = {
@@ -126,14 +133,39 @@ def init_embedding(generator, vocab: int, d: int, dtype, device=None):
     return {"embedding": e.to(dtype)}
 
 
-def embed(p, tokens, compute_dtype):
-    return p["embedding"][tokens].to(compute_dtype)
+def vocab_part(vocab: int) -> Optional[Tuple[int, int]]:
+    """(first id, ids) of this rank's slice of a ``vocab``-long vocabulary
+    under the active context; None where it is whole on every rank (one
+    rank, or the tensor-parallel axis does not divide it, as the rule
+    table's guard leaves it)."""
+    n = tp_size()
+    if n == 1 or not vocab or vocab % n:
+        return None
+    return tp_rank() * (vocab // n), vocab // n
 
 
-def unembed(p, x, logit_dtype):
+def embed(p, tokens, compute_dtype, vocab: int = 0):
+    part = vocab_part(vocab)
+    if part is None:
+        return p["embedding"][tokens].to(compute_dtype)
+    lo, v = part
+    table = tp_part(p["embedding"], 0, vocab, lo, lo + v)
+    ids = tokens.long() - lo
+    inside = ((ids >= 0) & (ids < v))[..., None]
+    rows = torch.where(inside, table[ids.clamp(0, v - 1)], torch.zeros((), dtype=table.dtype,
+                                                                        device=table.device))
+    return reduce_from_tp(rows).to(compute_dtype)
+
+
+def unembed(p, x, logit_dtype, vocab: int = 0):
     """Multiplies in the operands' common type, casts to ``logit_dtype``
-    afterwards (as the reference's einsum does)."""
+    afterwards (as the reference's einsum does).  Vocab-parallel (see the
+    module's docstring), the logits of this rank's slice."""
     e = p["embedding"]
+    part = vocab_part(vocab)
+    if part is not None:
+        e = tp_part(e, 0, vocab, part[0], part[0] + part[1])
+        x = copy_to_tp(x)
     dt = torch.promote_types(x.dtype, e.dtype)
     return torch.matmul(x.to(dt), e.to(dt).t()).to(logit_dtype)
 

@@ -8,14 +8,28 @@ batched matrix products (`torch.matmul`), as the reference computes them
 outside any kernel of its own.  Under a sharding context whose strategy
 selects ``ep_shardmap`` (and whose model axis divides the experts), `moe_ffn`
 takes the expert-parallel branch, `parallel.moe_ep.moe_ffn_ep`, as the
-reference does; otherwise the single-program path below, with the experts
-gathered whole where they are DTensors.  There, as in the reference, the
-layer is over the whole batch, wherever its rows are: when the
-data-parallel ranks each hold a part, they share their per-expert counts
-(`parallel.context.dp_gather`), so that the capacity is the whole batch's,
-a rank's assignments take their places in each expert's buffer after
-those of the ranks before it, and the load balance uses the whole batch's
-dispatch fractions.
+reference does; otherwise the single-program path below.  There, as in the
+reference, the layer is over the whole batch, wherever its rows are: when
+the data-parallel ranks each hold a part, they share their per-expert
+counts (`parallel.context.dp_gather`), so that the capacity is the whole
+batch's, a rank's assignments take their places in each expert's buffer
+after those of the ranks before it, and the load balance uses the whole
+batch's dispatch fractions.
+
+Each rank computes only its own share of that buffer (`_own_rows`): the
+rows its own tokens take, for the experts it holds (the experts' leaves
+stay cut along ``strat.ep``, "model"; all E outside a context).  Its
+tokens' rows of an expert are a contiguous run of that expert's buffer,
+so they are packed into a buffer of ``E / n_ep`` experts, ``rows`` long,
+and the rank's partial outputs are summed over the expert axis.  Where
+the batch is one part, ``rows`` is the capacity, and the layer is the
+whole (E, cap, d) buffer's product.  Where it is several, ``rows`` is the
+longest run: a device-to-host read of one number a layer, after the
+counts' all-gather (on the card `torch.bincount` already reads one back).
+A run is at most min(cap, T): each token takes an expert once.  On the
+``meta`` device, where there are no counts, ``rows`` is a part's even
+share of the capacity, so a dry run counts the layer under even routing.
+Outputs, drops and the aux loss are those of the whole buffer.
 
 Two differences of order, neither of value where the inputs have no ties:
 `torch.topk` does not promise the reference's lower index first among
@@ -35,7 +49,8 @@ import torch
 import torch.nn.functional as F
 
 from .._tree import tree_stack
-from ..parallel.context import current, dp_gather, ep_size, gather_params
+from ..parallel.comm import copy_to, reduce_from
+from ..parallel.context import current, dp_gather, ep_part, ep_size, gather_params
 from .config import ModelConfig
 from .ffn import ACTIVATIONS, init_ffn
 from .layers import dtype_of, init_linear
@@ -149,23 +164,63 @@ def moe_ffn(params: Dict, x: torch.Tensor,
     counts = torch.bincount(top_ids.reshape(-1), minlength=cfg.n_experts)
     every, part = dp_gather(counts)                   # (n_parts, E): every part's counts
     cap = capacity(T * every.shape[0], cfg)
+    before = every[:part].sum(0)
     order, token_src, buffer_idx, keep, weight = _plan(top_ids, top_p, T, cfg, cap,
-                                                       before=every[:part].sum(0))
-
-    # Dropped assignments all write the dump row E*cap, which is discarded.
-    buf = torch.zeros((cfg.n_experts * cap + 1, d), dtype=x.dtype, device=x.device)
-    buf = buf.index_put((buffer_idx,), xf[token_src] * keep[:, None].to(x.dtype))
-    ebuf = buf[:-1].reshape(cfg.n_experts, cap, d)
-    y = expert_ffn(params["experts"], ebuf, cfg)
-    y = torch.cat([y.reshape(-1, d), torch.zeros((1, d), dtype=y.dtype, device=y.device)])
-
-    gathered = y[buffer_idx] * (weight * keep)[:, None].to(y.dtype)
-    # Back to (token, choice) order, then each token's k outputs summed.
-    unsorted = gathered[torch.argsort(order)]
-    out = unsorted.reshape(T, cfg.top_k, d).sum(1)
+                                                       before=before)
+    out = _own_rows(params["experts"], xf, top_ids, counts, before, cap, order, token_src,
+                    buffer_idx, keep, weight, every.shape[0], cfg)
     aux, metrics = aux_losses(logits, probs, top_ids, cfg, dispatched=every.sum(0))
     metrics["moe_drop_frac"] = 1.0 - keep.float().mean()
     return out.reshape(B, S, d), aux, metrics
+
+
+def _own_rows(experts, xf, top_ids, counts, before, cap, order, token_src, buffer_idx, keep,
+              weight, n_parts, cfg: ModelConfig) -> torch.Tensor:
+    """`moe_ffn`'s output for this rank's tokens ``xf`` (T, d), from the
+    rows of the whole (E, cap, d) buffer that they take in the experts
+    this rank holds (``experts``: E / n_ep of them, from this rank's index
+    along the expert axis, or all E where they arrive whole), summed over
+    that axis.  ``before`` (E,): each expert's slots taken by the parts of
+    the batch ahead of this one; ``n_parts`` the batch's parts.  With one
+    part and all E experts this is the whole buffer's product, op for op."""
+    T, d = xf.shape
+    E_loc = experts["w_up"]["w"].shape[0]
+    n_ep, r_ep, group = ep_part() if E_loc < cfg.n_experts else (1, 0, None)
+    if E_loc * n_ep != cfg.n_experts:
+        raise ValueError(f"{E_loc} experts a rank over {n_ep} expert ranks: "
+                         f"not the config's {cfg.n_experts}")
+    e0 = r_ep * E_loc
+    sorted_e = top_ids.reshape(-1)[order]
+    rows = _part_rows(counts, before, cap, n_parts, T, e0, E_loc, xf.is_meta)
+    mine = keep & (sorted_e >= e0) & (sorted_e < e0 + E_loc)
+    run_pos = buffer_idx - sorted_e * cap - before[sorted_e]   # place in the run
+    dest = torch.where(mine, (sorted_e - e0) * rows + run_pos,
+                       torch.full_like(run_pos, E_loc * rows))
+    xin = copy_to(xf, group, n_ep)            # the other ranks' experts take their parts
+    buf = torch.zeros((E_loc * rows + 1, d), dtype=xf.dtype, device=xf.device)
+    buf = buf.index_put((dest,), xin[token_src] * mine[:, None].to(xf.dtype))
+    y = expert_ffn(experts, buf[:-1].reshape(E_loc, rows, d), cfg)
+    y = torch.cat([y.reshape(-1, d), torch.zeros((1, d), dtype=y.dtype, device=y.device)])
+    w = copy_to(weight, group, n_ep)
+    gathered = y[dest] * (w * mine)[:, None].to(y.dtype)
+    out = gathered[torch.argsort(order)].reshape(T, cfg.top_k, d).sum(1)
+    return reduce_from(out, group, n_ep)
+
+
+def _part_rows(counts, before, cap: int, n_parts: int, T: int, e0: int, E_loc: int,
+               meta: bool) -> int:
+    """The rows a part's buffer holds for each expert: the capacity where
+    the batch is one part; else the longest run of this part's tokens in
+    the buffers of experts ``[e0, e0 + E_loc)``, read back to the host (on
+    meta, where there are no counts, the even share).  A run is at most
+    min(cap, T): each token takes an expert once."""
+    if n_parts == 1:
+        return cap                    # the part's runs are the whole buffer
+    if meta:
+        return min(-(-cap // n_parts), T)
+    # This part's run of each expert's buffer: slots [before, before + n).
+    runs = ((before + counts).clamp(max=cap) - before).clamp(min=0)[e0:e0 + E_loc]
+    return int(runs.max())
 
 
 def moe_ffn_dense_oracle(params: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -30,11 +30,17 @@ are updated IN PLACE.  Each stacked parameter leaf is unbound once a
 forward (`torch.unbind`, whose backward stacks the layers' gradients in
 one allocation) instead of being indexed layer by layer.
 
-Under a sharded train step the parameters are DTensors: each block's are
-gathered into whole tensors where the block runs
-(`parallel.context.gather_params`), inside each remat'd period, so that
-one period's parameters are whole at a time; outside a sharding context
-the gather returns its input.
+Under a sharded train step or serving step the parameters are DTensors:
+each block's are gathered over the data-parallel mesh dims where the
+block runs (`parallel.context.gather_params`), inside each remat'd
+period, so that one period's parameters are gathered at a time; outside a
+sharding context the gather returns its input.  Each rank keeps its shard
+along the tensor-parallel axis ("model") and computes its own share of
+the step: its attention heads (`attention`), FFN columns (`ffn`) and
+experts (`moe_ffn`), and, where the axis divides the vocabulary, its
+vocab slice of the lookup, the logits and the loss (`lm_loss`'s
+vocab-parallel cross-entropy).  The norms and the Mamba2 and xLSTM
+mixers every rank along the axis computes alike.
 """
 
 from __future__ import annotations
@@ -53,7 +59,14 @@ from torch.utils.checkpoint import (
 )
 
 from .._tree import tree_map, tree_stack
-from ..parallel.context import gather_params
+from ..parallel.context import (
+    copy_to_tp,
+    gather_params,
+    max_over_tp,
+    reduce_from_tp,
+    tp_part,
+    tp_whole,
+)
 from .attention import (
     FlashSaver,
     _self_attention_math,
@@ -61,6 +74,10 @@ from .attention import (
     flash_forward_computing,
     init_attention,
     init_kv_cache,
+    local_heads,
+    project_kv,
+    project_out,
+    project_q,
 )
 from .config import BLOCK_ATTN, BLOCK_MAMBA2, BLOCK_MLSTM, BLOCK_MOE, BLOCK_SLSTM, ModelConfig
 from .ffn import ffn, init_ffn
@@ -76,6 +93,7 @@ from .layers import (
     positions_for,
     rope_tables,
     unembed,
+    vocab_part,
 )
 from .moe import init_moe, moe_ffn
 from .ssm import init_mamba2, init_ssm_cache, mamba2_block
@@ -259,18 +277,18 @@ def _bar(x, cfg):
     return bf16_cotangent_barrier(x) if cfg.bf16_cotangent else x
 
 
-def _cross_memory(bp, cfg, cache, encoder_out):
-    """The cross-attention's K and V, (B, S_enc, Hkv, Dh): projected from
-    ``encoder_out`` (training, prefill) and, with a cache, written into its
-    ``cross`` in place; else read back from the cache (decode)."""
+def _cross_memory(bp, cfg, cache, encoder_out, heads):
+    """The cross-attention's K and V of this rank's kv heads, (B, S_enc,
+    n_kv, Dh): projected from ``encoder_out`` (training, prefill) and, with
+    a cache, written into its ``cross`` in place; else read back from the
+    cache (decode)."""
     if encoder_out is None:
         if cache is None or "cross" not in cache:
             raise ValueError("decode without encoder_out needs a cross cache")
         return cache["cross"]["k"], cache["cross"]["v"]
-    cd = dtype_of(cfg.compute_dtype)
-    heads = lambda t: t.reshape(*t.shape[:-1], cfg.n_kv_heads, cfg.d_head)
-    ck = heads(apply_linear(bp["cross"]["wk"], encoder_out, cd))
-    cv = heads(apply_linear(bp["cross"]["wv"], encoder_out, cd))
+    if heads.split:
+        encoder_out = copy_to_tp(encoder_out)
+    ck, cv = project_kv(bp["cross"], encoder_out, cfg, heads)
     if cache is not None:
         cross_len = cache["cross"]["k"].shape[1] if "cross" in cache else 0
         if cross_len != ck.shape[1]:
@@ -293,13 +311,12 @@ def _attn_block(bp, x, cfg, positions, cache, index, encoder_out, kind,
     x = x + a
     new_cache = None if cache is None else dict(cache, attn=attn_cache)
     if "cross" in bp:
-        cd = dtype_of(cfg.compute_dtype)
+        heads = local_heads(cfg)
         hc = _bar(fused_rms_norm(x, bp["norm_cross"]["scale"], cfg.norm_eps), cfg)
-        ck, cv = _cross_memory(bp, cfg, cache, encoder_out)
-        q = apply_linear(bp["cross"]["wq"], hc, cd)
-        q = q.reshape(*q.shape[:-1], cfg.n_heads, cfg.d_head)
+        ck, cv = _cross_memory(bp, cfg, cache, encoder_out, heads)
+        q = project_q(bp["cross"], copy_to_tp(hc) if heads.split else hc, cfg, heads)
         o = _self_attention_math(q, ck, cv, causal=False)
-        x = x + apply_linear(bp["cross"]["wo"], o.reshape(*hc.shape[:-1], -1), cd)
+        x = x + project_out(bp["cross"], o.reshape(*hc.shape[:-1], -1), cfg, heads)
     h2 = _bar(fused_rms_norm(x, bp["norm2"]["scale"], cfg.norm_eps), cfg)
     if kind == BLOCK_MOE:
         f, aux, _ = moe_ffn(bp["moe"], h2, cfg)
@@ -445,7 +462,7 @@ def forward(
     if input_embeds is not None:
         x = input_embeds.to(cd)
     else:
-        x = embed(gather_params(params["embed"]), tokens, cd)
+        x = embed(gather_params(params["embed"]), tokens, cd, cfg.vocab_size)
     if vision_embeds is not None:
         x = torch.cat([vision_embeds.to(cd), x], dim=1)
     B, S, _ = x.shape
@@ -494,10 +511,44 @@ def forward(
     return x, new_cache, aux
 
 
-def logits_fn(params: Dict, hidden: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _head_logits(params: Dict, hidden: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The logits of this rank's vocab slice (`layers.vocab_part`; all of
+    them where the vocabulary is whole on every rank)."""
     if cfg.tie_embeddings:
-        return unembed(params["embed"], hidden, dtype_of(cfg.logit_dtype))
-    return apply_linear(params["unembed"], hidden, dtype_of(cfg.logit_dtype))
+        return unembed(params["embed"], hidden, dtype_of(cfg.logit_dtype), cfg.vocab_size)
+    p, part = params["unembed"], vocab_part(cfg.vocab_size)
+    if part is not None:
+        lo, hi = part[0], part[0] + part[1]
+        p = {k: tp_part(v, -1, cfg.vocab_size, lo, hi) for k, v in p.items()}
+        hidden = copy_to_tp(hidden)
+    return apply_linear(p, hidden, dtype_of(cfg.logit_dtype))
+
+
+def logits_fn(params: Dict, hidden: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The logits over the whole vocabulary (a vocab-parallel head's slices
+    gathered over the tensor-parallel axis)."""
+    return tp_whole(_head_logits(params, hidden, cfg), -1, cfg.vocab_size)
+
+
+def _cross_entropy(lg: torch.Tensor, targets: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The sum over the positions of -log softmax(logits)[target], from
+    ``lg``, this rank's vocab slice of the logits: where the vocabulary
+    splits, the maximum and the sum of exponentials are reduced over the
+    tensor-parallel axis and the gold logit comes from the rank that
+    holds it."""
+    part = vocab_part(cfg.vocab_size)
+    if part is None:
+        gold = torch.gather(lg, -1, targets[..., None])[..., 0]
+        return (torch.logsumexp(lg, dim=-1) - gold).sum()
+    lo, v = part
+    m = max_over_tp(lg.amax(-1))
+    total = reduce_from_tp(torch.exp(lg - m[..., None]).sum(-1))
+    ids = targets - lo
+    inside = (ids >= 0) & (ids < v)
+    gold = torch.gather(lg, -1, ids.clamp(0, v - 1)[..., None])[..., 0]
+    gold = reduce_from_tp(torch.where(inside, gold, torch.zeros((), dtype=gold.dtype,
+                                                                 device=gold.device)))
+    return (torch.log(total) + m - gold).sum()
 
 
 # --------------------------------------------------------------- encoder --
@@ -536,7 +587,7 @@ def lm_loss(
     """Next-token CE.  batch: inputs/targets (B,S) [+ encoder_embeds /
     vision_embeds / positions]; with a vision prefix the loss runs over the
     text suffix.  ``loss_chunk`` bounds the logits materialised at once to
-    (B, chunk, V)."""
+    (B, chunk, V) (its vocab slice, on a rank of a vocab-parallel head)."""
     encoder_out = None
     if cfg.n_encoder_layers:
         encoder_out = encode(params, batch["encoder_embeds"], cfg)
@@ -553,9 +604,7 @@ def lm_loss(
         hidden = hidden[:, hidden.shape[1] - targets.shape[1]:]
 
     def ce(h_chunk, t_chunk):
-        lg = logits_fn(head, h_chunk, cfg)
-        gold = torch.gather(lg, -1, t_chunk[..., None])[..., 0]
-        return (torch.logsumexp(lg, dim=-1) - gold).sum()
+        return _cross_entropy(_head_logits(head, h_chunk, cfg), t_chunk, cfg)
 
     B, S, _ = hidden.shape
     if loss_chunk and S % loss_chunk == 0 and S > loss_chunk:

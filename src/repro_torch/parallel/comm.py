@@ -6,11 +6,20 @@ derives from shardings is written out here:
   * `gather_param` (FSDP): a parameter's shards are all-gathered into the
     whole tensor for the computation; the backward reduce-scatters the
     gradient back to the shard, as a mean over the data-parallel mesh dims
-    (each rank's loss is the mean over its own part of the batch).  Along
+    (each rank's loss is the mean over its own part of the batch).  A
+    mesh dim in ``keep`` stays cut: the rank computes with its own shard
+    (tensor parallelism), and its gradient is that shard's already.  Along
     the other mesh dims every rank computes the same thing, so the
     backward takes its shard of the gradient there without a collective.
-  * `copy_to`, `split`, `gather`, `all_to_all`, `scale_grad`: the pieces of
-    the expert-parallel MoE and the pipeline, each with the backward that
+  * `copy_to` and `reduce_from`: Megatron's two pieces of tensor-parallel
+    compute over one mesh dim.  `copy_to` is the identity whose backward
+    sums the cotangent over the group (its input feeds computations that
+    differ across the ranks: column-parallel products); `reduce_from` sums
+    the ranks' partial results (row-parallel products) and passes the
+    cotangent back as it is.  `gather_sum` all-gathers a weight whose
+    parts the ranks use differently, and reduce-scatters its gradient.
+  * `split`, `gather`, `all_to_all`, `scale_grad`: the pieces of the
+    expert-parallel MoE and the pipeline, each with the backward that
     sends the cotangent the other way.
 
 A group of one rank is skipped: no collective runs, and every result is
@@ -161,6 +170,36 @@ class _CopyTo(torch.autograd.Function):
         return g, None, None
 
 
+class _ReduceFrom(torch.autograd.Function):
+    """Sum over the group; the backward passes the cotangent as it is (the
+    sum feeds the same computation on every rank of the group)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherSum(torch.autograd.Function):
+    """All-gather along ``dim``; the backward sums the cotangent over the
+    group and keeps this rank's chunk (reduce-scatter): each rank used
+    another part of the whole."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, n):
+        ctx.dim, ctx.group, ctx.n = dim, group, n
+        return all_gather_dim(x, dim, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_dim(g, ctx.dim, ctx.group, ctx.n).contiguous(), None, None, None
+
+
 class _ScaleGrad(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale):
@@ -219,6 +258,14 @@ class _AllToAll(torch.autograd.Function):
 
 def copy_to(x, group, n):
     return _CopyTo.apply(x, group, n) if n > 1 else x
+
+
+def reduce_from(x, group, n):
+    return _ReduceFrom.apply(x, group) if n > 1 else x
+
+
+def gather_sum(x, dim, group, n):
+    return _GatherSum.apply(x, dim % x.ndim, group, n) if n > 1 else x
 
 
 def scale_grad(x, scale: float):

@@ -282,11 +282,15 @@ def local_chunk(t: torch.Tensor, layout: Layout) -> torch.Tensor:
 
 def distribute(t: torch.Tensor, layout: Layout) -> torch.Tensor:
     """A DTensor holding this rank's shard of the whole tensor ``t``, which
-    every rank of the mesh holds alike; no collective."""
+    every rank of the mesh holds alike; no collective.  A shard smaller
+    than ``t`` is a copy, so that ``t``'s memory is freed with ``t``; a
+    whole one is ``t`` itself."""
     from torch.distributed.tensor import DTensor
 
-    return DTensor.from_local(local_chunk(t, layout).contiguous(), layout.mesh,
-                              layout.placements, run_check=False)
+    part = local_chunk(t, layout)
+    part = part.clone(memory_format=torch.contiguous_format) if part.numel() < t.numel() \
+        else part.contiguous()
+    return DTensor.from_local(part, layout.mesh, layout.placements, run_check=False)
 
 
 def distribute_tree(tree, specs, mesh) -> Any:

@@ -11,17 +11,25 @@ Everything runs on ``device`` (default ``"cuda"``); the cache (K/V, and
 the conv windows and SSM states of a hybrid stack) is updated in place.  The step functions run without autograd: their logits
 carry no graph.
 
-Given a ``mesh``, the step functions serve data-parallel over the batch:
-the parameters are DTensors placed by `parallel.sharding.param_specs`,
-each rank runs its rows of the batch (`parallel.sharding.local_batch`)
-and holds the cache of those rows, and the model gathers each period's
-parameters where it uses them (`parallel.context.gather_params`), as the
-sharded train step does.  The ranks along the other mesh dims repeat the
-same work: tensor-parallel compute is not done (ROADMAP Queue 1 item 14a).
+Given a ``mesh``, the step functions serve data-parallel over the batch
+and tensor-parallel over "model": the parameters are DTensors placed by
+`parallel.sharding.param_specs`, each rank runs its rows of the batch
+(`parallel.sharding.local_batch`), and the model gathers each period's
+parameters over the data axes where it uses them
+(`parallel.context.gather_params`), as the sharded train step does.  The
+ranks along "model" hold the same rows and split the heads, FFN columns,
+experts and vocab of each layer; the logits' vocab slices are gathered
+before they are returned.  The cache keeps the port's own layout: a rank's
+rows, and of those its own kv heads (`models.attention.local_heads`),
+where the reference's cache rule (`parallel.sharding.cache_specs`) cuts
+the sequence over "model".  `ServeEngine` takes the mesh too: every rank
+keeps the slots' bookkeeping alike from the whole batch's logits, and its
+`export_slot` and `import_slot` move a slot between the ranks' rows.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import struct
@@ -33,7 +41,8 @@ import torch
 from repro_torch._tree import tree_map
 from repro_torch.models import ModelConfig, forward, init_cache, logits_fn
 from repro_torch.models.transformer import encode, reset_slot
-from repro_torch.parallel.context import activation_sharding, gather_params
+from repro_torch.parallel.context import (activation_sharding, batch_part, dp_gather,
+                                         gather_params)
 from repro_torch.parallel.sharding import batch_mesh_dims, default_strategy, local_batch
 
 
@@ -132,11 +141,19 @@ class ServeEngine:
     Finished sequences free their slot; queued requests are prefilled into
     freed slots through the decode step.  Placing *engines* on nodes is the
     fleet scheduler's work; `export_slot` / `import_slot` are what it moves
-    a live request with."""
+    a live request with.
+
+    With a ``mesh`` (``params`` placed by `param_specs`; ``strategy`` by
+    default `default_strategy(mesh)`), each rank holds the cache of its
+    rows of the slots (of its kv heads), the decode step is the mesh form,
+    and every rank samples every slot from the whole batch's logits, so
+    that the ranks' bookkeeping is the same.  Every rank of the mesh must
+    call the same methods in the same order: a step and `export_slot` are
+    collective."""
 
     def __init__(self, cfg: ModelConfig, params, batch_slots: int, max_len: int,
                  eos_id: int = 0, temperature: float = 0.0, rng_seed: int = 0,
-                 device="cuda"):
+                 device="cuda", mesh=None, strategy=None):
         self.cfg = cfg
         self.params = params
         self.device = torch.device(device)
@@ -147,12 +164,41 @@ class ServeEngine:
         self.rng_seed = rng_seed
         self.queue: List[Request] = []
         self.finished: List[Request] = []
-        self.cache = init_cache(cfg, batch_slots, max_len, per_slot_index=True,
-                                device=self.device)
+        self.mesh = mesh
+        self.strategy = strategy = None if mesh is None else strategy or default_strategy(mesh)
+        with self._sharding():
+            # The slots this rank holds: [first, first + rows).
+            parts, part = batch_part()
+            rows = batch_slots // parts
+            self.first = part * rows
+            self.cache = init_cache(cfg, rows, max_len, per_slot_index=True, device=self.device)
         # Per-slot write offsets (slot-local KV positions).
         self.offsets = np.zeros(batch_slots, np.int32)
-        self._decode = make_decode_step(cfg)
+        self._decode = make_decode_step(cfg, mesh=mesh, strategy=strategy)
         self.steps = 0
+
+    def _sharding(self):
+        """The sharding context of the engine's mesh, its batch dims those
+        that cut the slots; a null context without a mesh."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        cut = batch_mesh_dims({"tokens": torch.zeros((len(self.slots), 1))}, self.mesh,
+                              self.strategy)
+        return activation_sharding(self.mesh, self.strategy, batch_dims=cut)
+
+    def _row(self, slot: int) -> Optional[int]:
+        """``slot``'s row in this rank's cache, or None where another rank
+        holds it."""
+        row = slot - self.first
+        return row if 0 <= row < self.cache["index"].shape[0] else None
+
+    def _all_rows(self, tree):
+        """Every leaf (of this rank's rows, batch first) stacked with the
+        other parts' in the slots' order; ``tree`` itself without a mesh."""
+        if self.mesh is None:
+            return tree
+        with self._sharding():
+            return tree_map(lambda t: dp_gather(t)[0].flatten(0, 1), tree)
 
     def _request_generator(self, req: Request) -> torch.Generator:
         """Generator for ``req``'s next token: seeded from (rng_seed, req_id,
@@ -175,7 +221,8 @@ class ServeEngine:
         self.offsets[slot] = 0
         # Reset the slot's write offset and wipe its K/V (stale K/V would be
         # masked by kv_len anyway; zeroing keeps slot states comparable).
-        self.cache = reset_slot(self.cache, slot)
+        if self._row(slot) is not None:
+            self.cache = reset_slot(self.cache, self._row(slot))
         req.output = []
 
     def _slot_tokens(self) -> np.ndarray:
@@ -200,6 +247,7 @@ class ServeEngine:
             return
         tokens = torch.from_numpy(self._slot_tokens()).to(self.device)
         self.cache, logits = self._decode(self.params, self.cache, tokens)
+        logits = self._all_rows(logits)
         self.steps += 1
         if self.temperature <= 0.0:
             next_tok = sample(logits[:, 0], None, 0.0).cpu().numpy()
@@ -235,33 +283,45 @@ class ServeEngine:
     # a destination engine built from the same config/params/rng_seed, and
     # decoding continues bit-identically.  In an MoE stack a decode step's
     # slots share the experts' capacity, so there the continuation is
-    # bit-identical only beside the same neighbours in the same slots.
+    # bit-identical only beside the same neighbours in the same slots.  On a
+    # mesh the payload is each rank's own kv heads of the slot (the other
+    # state whole): it imports into an engine on a mesh of the same shape.
     def export_slot(self, slot: int) -> Dict:
         """Deep-copy one slot's KV / recurrent state + write offset (and
         the shared block's per-depth caches of a hybrid stack).  The tensors
         are clones: the engine's cache is written in place, and the payload
-        must not change when the engine steps on."""
+        must not change when the engine steps on.  On a mesh every rank
+        takes the slot from the rank whose rows hold it."""
         c = self.cache
+        rows = c["index"].shape[0]
+        row = slot % rows              # on a mesh, every rank's row at the slot's place
+        take = lambda t: t.clone()
+        if self.mesh is not None:
+            def take(t):
+                with self._sharding():
+                    return dp_gather(t)[0][slot // rows].clone()    # the holder's
         state = {
-            "index": c["index"][slot].clone(),
-            "blocks": tree_map(lambda x: x[:, slot].clone(), c["blocks"]),
-            "tail": tree_map(lambda x: x[slot].clone(), c["tail"]),
+            "index": take(c["index"][row]),
+            "blocks": tree_map(lambda x: take(x[:, row]), c["blocks"]),
+            "tail": tree_map(lambda x: take(x[row]), c["tail"]),
             "offset": int(self.offsets[slot]),
         }
         if "shared" in c:
-            state["shared"] = tree_map(lambda x: x[:, slot].clone(), c["shared"])
+            state["shared"] = tree_map(lambda x: take(x[:, row]), c["shared"])
         if "tail_shared" in c:
-            state["tail_shared"] = tree_map(lambda x: x[slot].clone(), c["tail_shared"])
+            state["tail_shared"] = tree_map(lambda x: take(x[row]), c["tail_shared"])
         return state
 
     def import_slot(self, slot: int, state: Dict) -> None:
-        """Install an `export_slot` payload into ``slot`` (overwrites it)."""
-        c = self.cache
-        c["index"][slot] = state["index"].to(self.device)
-        tree_map(lambda x, v: x[:, slot].copy_(v), c["blocks"], state["blocks"])
-        tree_map(lambda x, v: x[slot].copy_(v), c["tail"], state["tail"])
-        if "shared" in c:
-            tree_map(lambda x, v: x[:, slot].copy_(v), c["shared"], state["shared"])
-        if "tail_shared" in c:
-            tree_map(lambda x, v: x[slot].copy_(v), c["tail_shared"], state["tail_shared"])
+        """Install an `export_slot` payload into ``slot`` (overwrites it);
+        on a mesh, the rank whose rows hold the slot does."""
+        c, row = self.cache, self._row(slot)
+        if row is not None:
+            c["index"][row] = state["index"].to(self.device)
+            tree_map(lambda x, v: x[:, row].copy_(v), c["blocks"], state["blocks"])
+            tree_map(lambda x, v: x[row].copy_(v), c["tail"], state["tail"])
+            if "shared" in c:
+                tree_map(lambda x, v: x[:, row].copy_(v), c["shared"], state["shared"])
+            if "tail_shared" in c:
+                tree_map(lambda x, v: x[row].copy_(v), c["tail_shared"], state["tail_shared"])
         self.offsets[slot] = state["offset"]

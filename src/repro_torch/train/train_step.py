@@ -10,15 +10,17 @@ device (shapes and types, no memory).
 
 With a ``mesh`` the state is DTensors placed by
 `parallel.sharding.state_specs` (each rank holds its shards) and the step
-is FSDP's.  It takes the whole batch, cuts the rank's part
-(`parallel.sharding.local_batch`) and runs under
+is FSDP's and tensor-parallel.  It takes the whole batch, cuts the rank's
+part (`parallel.sharding.local_batch`: the ranks along "model" hold the
+same rows, as `batch_specs` says) and runs under
 `parallel.context.activation_sharding`: the model gathers each period's
-parameters where it uses them (`parallel.context.gather_params`), the
-gradients come back to each leaf's placements as a mean over the
-data-parallel ranks, each rank updates its own shards, and the metrics are
-averaged over the data-parallel ranks.  This is the reference's ``jit``
-with ``in_shardings``; tensor-parallel compute is not done (the ranks
-along "model" compute the same thing).
+parameters over the data-parallel dims where it uses them
+(`parallel.context.gather_params`) and each rank along "model" computes
+its own heads, FFN columns, experts and vocab slice; the gradients come
+back to each leaf's placements as a mean over the data-parallel ranks,
+each rank updates its own shards, and the metrics are averaged over the
+data-parallel ranks.  This is the reference's ``jit`` with
+``in_shardings``.
 """
 
 from __future__ import annotations

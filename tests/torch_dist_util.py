@@ -15,11 +15,13 @@ import no JAX.
 
 from __future__ import annotations
 
+import datetime
 import json
 import os
 import pickle
 import subprocess
 import sys
+import traceback
 from pathlib import Path
 
 import numpy as np
@@ -51,7 +53,12 @@ def run_ranks(fn: str, world: int, workdir, timeout: float = 240, device_type: s
     workdir.mkdir(parents=True, exist_ok=True)
     (workdir / "kw.json").write_text(json.dumps(dict(kw, device_type=device_type)))
     code = f"import torch_dist_util as u; u._spawn({fn!r}, {world}, {str(workdir)!r})"
-    _run(code, workdir, timeout, _env())
+    try:
+        _run(code, workdir, timeout, _env())
+    except AssertionError as e:
+        errors = "".join(f"\nrank {p.stem[6:]}: {p.read_text()[-3000:]}"
+                         for p in sorted(workdir.glob("error_*.txt")))
+        raise AssertionError(f"{e}{errors}") from None
     out = []
     for r in range(world):
         with open(workdir / f"result_{r}.pkl", "rb") as f:
@@ -83,18 +90,27 @@ def _rank_main(rank, fn, world, workdir):
     import torch
     import torch.distributed as dist
 
-    from repro_torch.runtime.elastic import init_process_group
+    from repro_torch.runtime.elastic import backend_for
 
     warnings.simplefilter("ignore", FutureWarning)
     torch.set_num_threads(1)
     torch.backends.cuda.matmul.allow_tf32 = False        # fp32 as on the CPU
     torch.backends.cudnn.allow_tf32 = False
     kw = json.loads((Path(workdir) / "kw.json").read_text())
-    init_process_group(kw["device_type"], f"file://{workdir}/store", rank, world)
+    if kw["device_type"] == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    # A collective that waits longer than this for its peers fails the run.
+    dist.init_process_group(backend_for(kw["device_type"]), init_method=f"file://{workdir}/store",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=kw.pop("collective_timeout_s", 600)))
     try:
         result = globals()[fn](rank, world, Path(workdir), **kw)
-    finally:
-        dist.destroy_process_group()
+    except BaseException:
+        # Leave at once: tearing the group down would wait for the other
+        # ranks, which wait in a collective for this one.
+        (Path(workdir) / f"error_{rank}.txt").write_text(traceback.format_exc())
+        os._exit(1)
+    dist.destroy_process_group()
     with open(Path(workdir) / f"result_{rank}.pkl", "wb") as f:
         pickle.dump(result, f)
 
@@ -1084,3 +1100,640 @@ def rank_serve_on_a_mesh(rank, world, workdir, device_type):
         cache_m, mine = decode_m(placed, cache_m, nxt)
         pairs.append((mine, whole[rows]))
     return [(to_np(a), to_np(b)) for a, b in pairs]
+
+
+# -------------------------------------------------------- tensor parallel --
+#: The tensor-parallel cases: reduced qwen1.5-0.5b (MHA, QKV bias, tied
+#: vocab of 64 that splits over 2 and 4), reduced granite-3-2b (GQA 4/2,
+#: a vocab of 67 that splits over neither, as its own 49155 does not),
+#: reduced seamless-m4t-large-v2 (an encoder, cross-attention in every
+#: decoder block, a GELU FFN) and reduced nemotron-4-15b (a squared-ReLU
+#: FFN, GQA 4/2).
+TP_VOCAB = {"qwen1.5-0.5b": 64, "granite-3-2b": 67, "seamless-m4t-large-v2": 64,
+            "nemotron-4-15b": 64}
+TP_MESHES = ((1, 4), (2, 2))
+TP_STEPS = 2
+TP_FRAMES = 16          # an encoder-decoder's stub frames a row
+#: Reduced qwen2-vl (M-RoPE, 2 kv heads of 32) on (1, 4): with its 4 query
+#: heads pairs of ranks share a kv head whose columns the rule cut in half;
+#: with 6 the query heads do not divide over 4 (as its own 12 do not over
+#: 8), and every rank computes the whole attention from gathered weights.
+TP_VL = {"vl_shared_kv": {}, "vl_whole_heads": {"n_heads": 6}}
+
+
+def tp_cut(pkg, arch, **overrides):
+    """The reduced ``arch`` of the tensor-parallel tests, in ``pkg``."""
+    if pkg == "jax":
+        from repro.configs import get_config
+        from repro.models import reduced
+    else:
+        from repro_torch.configs import get_config
+        from repro_torch.models import reduced
+    return reduced(get_config(arch), vocab_size=TP_VOCAB.get(arch, 64), **overrides)
+
+
+def tp_batch(cfg, i):
+    """`batch_np` (``i``), with an encoder-decoder's ``encoder_embeds``
+    ((8, `TP_FRAMES`, d_model) from the step's seed) where ``cfg`` (of
+    either package) has an encoder."""
+    batch = batch_np(i)
+    if cfg.n_encoder_layers:
+        rng = np.random.default_rng(1000 + i)
+        batch["encoder_embeds"] = rng.standard_normal(
+            (8, TP_FRAMES, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+class TPBatches:
+    """Step-indexed batches (`tp_batch`) of ``cfg`` for the port's `Trainer`."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+
+    def batch_at(self, i):
+        return tp_batch(self.cfg, i)
+
+
+def jax_tensor_parallel(workdir):
+    """The reference's side of `rank_tensor_parallel`: for each case its
+    initial AdamW state and `TP_STEPS` steps of its train step jitted with
+    the state's shardings on each mesh of `TP_MESHES` (4 of the 8 host
+    devices), on `tp_batch`'s batches: logs and final parameters; and
+    reduced qwen2-vl's loss and gradients at its initial parameters on
+    (1, 4) in each case of `TP_VL`."""
+    import jax
+    from jax.sharding import Mesh
+
+    from repro.models import init_lm, lm_loss
+    from repro.parallel.context import activation_sharding
+    from repro.parallel.sharding import default_strategy, param_specs, state_specs
+    from repro.train import init_state, make_optimizer, make_train_step, state_shapes
+
+    mesh_of = lambda shape: Mesh(np.array(jax.devices()[:4]).reshape(shape), ("data", "model"))
+    out = {}
+    for arch in TP_VOCAB:
+        cfg, opt = tp_cut("jax", arch), make_optimizer("adamw", lr=1e-3)
+        step_fn = make_train_step(cfg, opt)
+        state0 = init_state(jax.random.PRNGKey(0), cfg, opt)
+        runs = {}
+        for shape in TP_MESHES:
+            mesh = mesh_of(shape)
+            strat = default_strategy(mesh)
+            specs = state_specs(state_shapes(cfg, opt), mesh, strat)
+            sharded = jax.jit(step_fn, in_shardings=(specs, None), out_shardings=(specs, None))
+            state, log = jax.device_put(state0, specs), []
+            with mesh, activation_sharding(mesh, strat):
+                for i in range(TP_STEPS):
+                    state, m = sharded(state, tp_batch(cfg, i))
+                    log.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])})
+            runs[shape] = {"log": log, "params": {p: np.asarray(a) for p, a in
+                                                  jax_flat(state["params"]).items()}}
+        out[arch] = {"state0": jax.tree.map(np.asarray, state0), "runs": runs}
+
+    mesh = mesh_of((1, 4))
+    strat = default_strategy(mesh)
+    for case, overrides in TP_VL.items():
+        cfg = tp_cut("jax", "qwen2-vl-2b", **overrides)
+        params = init_lm(jax.random.PRNGKey(0), cfg)
+        specs = param_specs(jax.eval_shape(lambda: params), mesh, strat)
+        fn = jax.jit(jax.value_and_grad(lambda p, b: lm_loss(p, b, cfg)[0]),
+                     in_shardings=(specs, None))
+        with mesh, activation_sharding(mesh, strat):
+            loss, grads = fn(jax.device_put(params, specs), batch_np(0))
+        out[case] = {"params": jax.tree.map(np.asarray, params), "loss": float(loss),
+                     "grads": {p: np.asarray(a) for p, a in jax_flat(grads).items()}}
+    out["moe"] = jax_moe_tp()
+    return out
+
+
+def rank_tensor_parallel(rank, world, workdir, device_type, ref_file=None, steps=TP_STEPS):
+    """Each case of `TP_VOCAB` trained `steps` AdamW steps by `Trainer` on
+    each mesh of `TP_MESHES` from the reference's initial state (the port's
+    seed 0 without ``ref_file``), on `tp_batch`'s batches: the logs, the
+    final parameters and the local shape of a layer's query, FFN and
+    vocab weights; on rank 0 also the unsharded run.  With ``ref_file``,
+    also reduced qwen2-vl's loss and gradients on (1, 4) in each case of
+    `TP_VL`, and the MoE layer on (2, 2) (`rank_moe_tp`)."""
+    import torch
+
+    from repro_torch.convert import params_from_jax, state_from_jax, tree_to_numpy
+    from repro_torch.parallel.comm import mesh_device
+    from repro_torch.parallel.sharding import default_strategy, distribute_tree, state_specs
+    from repro_torch.runtime.elastic import MeshPlan
+    from repro_torch.train import (Trainer, TrainerConfig, init_state, make_optimizer,
+                                   state_shapes)
+
+    ref = None
+    if ref_file is not None:
+        with open(ref_file, "rb") as f:
+            ref = pickle.load(f)
+    meshes = {shape: MeshPlan(shape, ("data", "model")).build(device_type=device_type)
+              for shape in TP_MESHES}
+    device = mesh_device(meshes[TP_MESHES[0]])
+    tcfg = TrainerConfig(steps=steps, log_every=10 ** 9)
+    out = {}
+    for arch in TP_VOCAB:
+        cfg, opt = tp_cut("torch", arch), make_optimizer("adamw", lr=1e-3)
+
+        def fresh():
+            if ref is not None:
+                return state_from_jax(ref[arch]["state0"], device)
+            return init_state(torch.Generator(device).manual_seed(0), cfg, opt, device=device)
+
+        for shape, mesh in meshes.items():
+            specs = state_specs(state_shapes(cfg, opt), mesh, default_strategy(mesh))
+            trainer = Trainer(cfg, tcfg, TPBatches(cfg), mesh=mesh, optimizer=opt)
+            state = trainer.run(state=distribute_tree(fresh(), specs, mesh))
+            layer = state["params"]["blocks"]["pos0"]
+            out[(arch, shape)] = {
+                "sharded": trainer.metrics_log, "params": bits(state["params"]),
+                "local": {"wq": tuple(layer["attn"]["wq"]["w"].to_local().shape),
+                          "w_up": tuple(layer["ffn"]["w_up"]["w"].to_local().shape),
+                          "embed": tuple(state["params"]["embed"]["embedding"]
+                                         .to_local().shape)}}
+        if rank == 0:
+            plain = Trainer(cfg, tcfg, TPBatches(cfg), optimizer=opt, device=device)
+            out[arch] = {"plain": plain.metrics_log, "plain_params": dict(
+                _items(tree_to_numpy(plain.run(state=fresh())["params"])))}
+    if ref is not None:
+        for case, overrides in TP_VL.items():
+            out[case] = _loss_and_grads(tp_cut("torch", "qwen2-vl-2b", **overrides),
+                                        params_from_jax(ref[case]["params"], device),
+                                        meshes[(1, 4)])
+        out["moe"] = rank_moe_tp(meshes[(2, 2)], ref["moe"])
+    return out
+
+
+def _loss_and_grads(cfg, params, mesh):
+    """The loss of `batch_np` (0) and its gradients (whole tensors) with
+    ``params`` placed by `param_specs` on ``mesh``, as the sharded train
+    step takes them: the rank's rows under the context, the loss averaged
+    over the data ranks."""
+    import torch
+
+    from repro_torch.models import lm_loss
+    from repro_torch.parallel.context import activation_sharding
+    from repro_torch.parallel.sharding import (batch_mesh_dims, default_strategy,
+                                               distribute_tree, local_batch, param_specs)
+    from repro_torch.train.train_step import _dp_mean
+
+    strat = default_strategy(mesh)
+    placed = distribute_tree(params, param_specs(params, mesh, strat), mesh)
+    leaves = []
+
+    def track(t):
+        leaves.append(t.detach().requires_grad_(True))
+        return leaves[-1]
+
+    from repro_torch._tree import tree_map
+    live = tree_map(track, placed)
+    batch = {k: torch.from_numpy(v).to(params["embed"]["embedding"].device)
+             for k, v in batch_np(0).items()}
+    cut = batch_mesh_dims(batch, mesh, strat)
+    with activation_sharding(mesh, strat, batch_dims=cut):
+        loss, _ = lm_loss(live, local_batch(batch, mesh, strat), cfg)
+        grads = torch.autograd.grad(loss, leaves)
+    loss = _dp_mean({"loss": loss.detach()}, mesh, strat)["loss"]
+    paths = [p for p, _ in _items(placed)]
+    return {"loss": float(loss),
+            "grads": {p: to_np(g.full_tensor()) for p, g in zip(paths, grads)}}
+
+
+def check_tensor_parallel(results, arch, shape):
+    """`rank_tensor_parallel`'s run of ``arch`` on ``shape``: on every rank
+    the losses (1e-5) and gradient norms (1e-4 relative) follow the
+    unsharded run, and the parameters lie within a quarter of the learning
+    rate of it (2.5e-4)."""
+    plain, plain_params = results[0][arch]["plain"], results[0][arch]["plain_params"]
+    for r in results:
+        got = r[(arch, shape)]
+        same_log(got["sharded"], plain)
+        assert list(got["params"]) == list(plain_params)
+        for p, want in plain_params.items():
+            np.testing.assert_allclose(got["params"][p], want, atol=2.5e-4, rtol=0, err_msg=p)
+
+
+# The MoE layer on (2, 2): each rank its data rank's rows and 2 of the 4
+# experts, at the config's capacity and at a tight one (assignments drop).
+MOE_TP_CASES = ("default", "tight")
+
+
+def jax_moe_tp():
+    """The reference's MoE layer on (4, 16, 64) tokens of `moe_cut` at each
+    case of `MOE_TP_CASES`: single-program output, aux loss, drop fraction,
+    the gradients of sum(y^2) (input, router, experts) and of the aux loss
+    (input, router); and its output on a (2, 2) mesh under the default
+    strategy."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+    from repro.models.moe import init_moe, moe_ffn
+    from repro.parallel.context import activation_sharding
+    from repro.parallel.sharding import ShardingStrategy
+
+    mesh = Mesh(np.array(jax.devices()[:4]).reshape(2, 2), ("data", "model"))
+    out = {}
+    for case in MOE_TP_CASES:
+        cfg = moe_cut("jax", case)
+        key = jax.random.PRNGKey(0)
+        params = init_moe(key, cfg, jnp.float32)
+        x = jax.random.normal(jax.random.fold_in(key, 1), (4, 16, cfg.d_model))
+        y, aux, metrics = moe_ffn(params, x, cfg)
+        g = jax.grad(lambda p, x: jnp.sum(moe_ffn(p, x, cfg)[0] ** 2), argnums=(0, 1))(params, x)
+        ga = jax.grad(lambda p, x: moe_ffn(p, x, cfg)[1], argnums=(0, 1))(params, x)
+        put = lambda a, *spec: jax.device_put(a, NamedSharding(mesh, P(*spec)))
+        with mesh, activation_sharding(mesh, ShardingStrategy(dp=("data",))):
+            on_mesh = jax.jit(lambda p, x: moe_ffn(p, x, cfg)[0])(params,
+                                                                  put(x, "data", None, None))
+        out[case] = dict(
+            params=jax.tree.map(np.asarray, params), x=np.asarray(x), y=np.asarray(y),
+            aux=float(aux), drops=float(metrics["moe_drop_frac"]), on_mesh=np.asarray(on_mesh),
+            gx=np.asarray(g[1]), grouter=np.asarray(g[0]["router"]["w"]),
+            gexperts={k: np.asarray(v["w"]) for k, v in g[0]["experts"].items()},
+            gx_aux=np.asarray(ga[1]), grouter_aux=np.asarray(ga[0]["router"]["w"]))
+    return out
+
+
+def rank_moe_tp(mesh, ref):
+    """The port's `moe_ffn` on the (2, 2) ``mesh`` under the default
+    strategy, each rank its data rank's (2, 16, 64) rows of ``ref``'s
+    input and, of the experts placed by the rule table, its 2 of 4: the
+    output, aux loss and drop fraction, the gradients of sum(y^2) (rows of
+    the input, router, experts) and of the aux loss (input, router), and
+    the experts' local shape."""
+    import torch
+
+    from repro_torch.convert import params_from_jax
+    from repro_torch.models.moe import moe_ffn
+    from repro_torch.parallel.comm import mesh_device
+    from repro_torch.parallel.context import activation_sharding
+    from repro_torch.parallel.sharding import default_strategy, distribute_tree, param_specs
+
+    device, strat = mesh_device(mesh), default_strategy(mesh)
+    i = mesh.get_local_rank(0)
+    out = {}
+    for case in MOE_TP_CASES:
+        cfg = moe_cut("torch", case)
+        whole = params_from_jax(ref[case]["params"], device)
+        specs = param_specs({"moe": whole}, mesh, strat)["moe"]["experts"]
+        experts = distribute_tree(whole["experts"], specs, mesh)
+        names = sorted(experts)
+        leaves = {k: experts[k]["w"].detach().requires_grad_(True) for k in names}
+        router = whole["router"]["w"].requires_grad_(True)
+        params = {"router": {"w": router}, "experts": {k: {"w": v} for k, v in leaves.items()}}
+        x = torch.from_numpy(ref[case]["x"][2 * i:2 * i + 2]).to(device).requires_grad_(True)
+        with activation_sharding(mesh, strat):
+            y, aux, metrics = moe_ffn(params, x, cfg)
+            g = torch.autograd.grad(y.square().sum(), [x, router] + [leaves[k] for k in names],
+                                    retain_graph=True)
+            ga = torch.autograd.grad(aux, [x, router])
+        out[case] = {"y": to_np(y), "aux": float(aux), "drops": float(metrics["moe_drop_frac"]),
+                     "gx": to_np(g[0]), "grouter": to_np(g[1]),
+                     "gexperts": {k: to_np(t.full_tensor()) for k, t in zip(names, g[2:])},
+                     "gx_aux": to_np(ga[0]), "grouter_aux": to_np(ga[1]),
+                     "experts_local": tuple(leaves["w_up"].to_local().shape)}
+    return out
+
+
+def rank_engine_on_a_mesh(rank, world, workdir, device_type):
+    """Reduced qwen1.5-0.5b (vocab 64, split over "model") served by
+    `ServeEngine` on a (2, 2) mesh of 4 slots and unsharded: the greedy
+    streams of 6 requests, and the logits of the mesh form of the decode
+    step beside the unsharded step's on the same cache; then a sampled
+    request moved mid-decode from slot 0 of one mesh engine into slot 3
+    (held by the other data rank) of another, beside the same request
+    never moved: its tokens and the slot's state at the end.  Then
+    reduced seamless-m4t-large-v2 (4 rows of `TP_FRAMES` stub frames)
+    through the prefill and decode steps on the mesh and unsharded (the
+    engine takes no cross length, as the reference's): the prefill's
+    and one decode step's logits of the rank's rows, and the shape of its
+    cross cache."""
+    import torch
+
+    from repro_torch.models import init_lm
+    from repro_torch.parallel.sharding import default_strategy, distribute_tree, param_specs
+    from repro_torch.runtime.elastic import MeshPlan
+    from repro_torch.serve.engine import (Request, ServeEngine, make_decode_step,
+                                          make_prefill_step)
+
+    mesh = MeshPlan((2, 2), ("data", "model")).build(device_type=device_type)
+    cfg = tp_cut("torch", "qwen1.5-0.5b")
+    params = init_lm(torch.Generator("cpu").manual_seed(0), cfg, device="cpu")
+    placed = distribute_tree(params, param_specs(params, mesh, default_strategy(mesh)), mesh)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, 64, size=int(rng.integers(2, 7))).tolist() for _ in range(6)]
+    engine = lambda p, **kw: ServeEngine(cfg, p, batch_slots=4, max_len=48, eos_id=-1,
+                                         device="cpu", **kw)
+    streams = {}
+    for name, eng in (("mesh", engine(placed, mesh=mesh)), ("whole", engine(params))):
+        reqs = [Request(i, list(p), max_new_tokens=6) for i, p in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_done(500)
+        streams[name] = {r.req_id: list(r.output) for r in reqs}
+        if name == "mesh":
+            rows, heads = eng.cache["index"].shape[0], eng.cache["blocks"]["pos0"]["attn"]["k"]
+            tokens = torch.from_numpy(rng.integers(0, 64, size=(4, 1)).astype(np.int32))
+            cache = eng.cache
+    # The decode step's logits on the mesh engine's last cache, against the
+    # unsharded step's on that cache's whole (every rank's rows and heads).
+    whole_cache = _whole_cache(cache, mesh)
+    _, want = make_decode_step(cfg)(params, whole_cache, tokens)
+    _, got = make_decode_step(cfg, mesh=mesh)(placed, cache, tokens)
+    r0 = mesh.get_local_rank(0) * rows
+
+    mk = lambda: engine(placed, mesh=mesh, temperature=0.7, rng_seed=3)
+    ref_eng = mk()
+    ref_req = Request(5, prompt=[7, 8, 9], max_new_tokens=10)
+    ref_eng.submit(ref_req)
+    ref_eng.run_until_done(200)
+    src = mk()
+    mig = Request(5, prompt=[7, 8, 9], max_new_tokens=10)
+    src.submit(mig)
+    while len(mig.output) < 4:
+        src.step()
+    state = src.export_slot(0)
+    dst = mk()
+    dst.import_slot(3, state)
+    dst.slots[3], dst.offsets[3] = mig, state["offset"]
+    dst.run_until_done(200)
+    moved, kept = dst.export_slot(3), ref_eng.export_slot(0)
+    offsets = moved.pop("offset"), kept.pop("offset")
+
+    scfg = tp_cut("torch", "seamless-m4t-large-v2")
+    sparams = init_lm(torch.Generator("cpu").manual_seed(0), scfg, device="cpu")
+    splaced = distribute_tree(sparams, param_specs(sparams, mesh, default_strategy(mesh)),
+                              mesh)
+    batch = {"tokens": torch.from_numpy(rng.integers(1, 64, size=(4, 5)).astype(np.int32)),
+             "encoder_embeds": torch.from_numpy(rng.standard_normal(
+                 (4, TP_FRAMES, scfg.d_model)).astype(np.float32))}
+    nxt = torch.from_numpy(rng.integers(1, 64, size=(4, 1)).astype(np.int32))
+    prefill = lambda **kw: make_prefill_step(scfg, 12, cross_len=TP_FRAMES, device="cpu", **kw)
+    whole_cache, whole_first = prefill()(sparams, batch)
+    _, whole_next = make_decode_step(scfg)(sparams, whole_cache, nxt)
+    mesh_cache, mesh_first = prefill(mesh=mesh)(splaced, batch)
+    _, mesh_next = make_decode_step(scfg, mesh=mesh)(splaced, mesh_cache, nxt)
+    cross = {"first": (to_np(mesh_first), to_np(whole_first[r0:r0 + rows])),
+             "next": (to_np(mesh_next), to_np(whole_next[r0:r0 + rows])),
+             "cross_kv": tuple(mesh_cache["blocks"]["pos0"]["cross"]["k"].shape)}
+    return {"streams": streams, "rows": rows, "kv_heads": tuple(heads.shape),
+            "logits": (to_np(got), to_np(want[r0:r0 + rows])),
+            "moved": (mig.output, ref_req.output, bits(moved), bits(kept), offsets),
+            "cross": cross}
+
+
+def _whole_cache(cache, mesh):
+    """A mesh engine's cache made whole: each leaf's rows gathered over
+    "data" and, for the K/V (batch, layer, length, kv heads, d_head) of
+    the stacked layers, its kv heads over "model"."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch._tree import tree_map
+
+    def cat(t, dim, k):
+        parts = [torch.empty_like(t) for _ in range(mesh.size(k))]
+        dist.all_gather(parts, t.contiguous(), group=mesh.get_group(k))
+        return torch.cat(parts, dim)
+
+    out = tree_map(lambda t: cat(cat(t, 3, 1), 1, 0) if t.ndim == 5 else cat(t, 0, 0),
+                   {"blocks": cache["blocks"], "index": cache["index"]})
+    return dict(cache, **out)
+
+
+# The tensor-parallel check of tools/multi_gpu_check.py at full width.
+TP_FULL_TOKENS = (2, 1024)      # fp32 granite's batch: rows x positions
+TP_BF16_TOKENS = (2, 4096)      # bf16 granite's, the card's train phase's
+TP_BF16_STEPS = 4
+
+
+class TokenBatches:
+    """Step-indexed batches of random tokens below ``vocab``: ``rows`` x
+    ``seq`` positions, from the step's seed."""
+
+    def __init__(self, vocab, rows, seq):
+        self.vocab, self.rows, self.seq = vocab, rows, seq
+
+    def batch_at(self, i):
+        t = np.random.default_rng(i).integers(0, self.vocab, size=(self.rows, self.seq + 1))
+        return {"inputs": t[:, :-1].astype(np.int32), "targets": t[:, 1:].astype(np.int32)}
+
+
+class _NoUpdate:
+    """An optimizer that leaves the parameters as they are: its train step
+    is one loss and one gradient norm."""
+
+    def init(self, params):
+        return {}
+
+    def update(self, grads, opt, params):
+        return params, opt
+
+
+def _free(device):
+    import gc
+
+    import torch
+
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def moe_rows_timing(mesh, device, cfg, tokens, reps=3):
+    """The mesh train step of the MoE ``cfg`` (one loss and gradient, no
+    update) on ``tokens`` (rows x positions), with each data part's buffer
+    ``rows`` long an expert: the longest run of its tokens, read back to the
+    host (`models.moe._part_rows`, the program's); the largest of those
+    runs in the warm-up step, a constant with no read (the read's own
+    cost); and the static bound min(cap, T), which needs no read either.
+    One warm-up step of each, then ``reps`` timed steps of each,
+    alternated: their seconds, the rows of each layer call of the last
+    step and the last losses."""
+    import time
+
+    import torch
+
+    from repro_torch.models import init_lm, moe
+    from repro_torch.parallel.sharding import default_strategy, distribute_tree, param_specs
+    from repro_torch.train import make_train_step
+
+    params = init_lm(torch.Generator(device).manual_seed(0), cfg, device=device)
+    placed = distribute_tree(params, param_specs(params, mesh, default_strategy(mesh)), mesh)
+    del params
+    state = {"params": placed, "opt": {}, "step": torch.zeros((), dtype=torch.int32,
+                                                               device=device)}
+    batch = {k: torch.from_numpy(v).to(device) for k, v in
+             TokenBatches(cfg.vocab_size, *tokens).batch_at(0).items()}
+    step = make_train_step(cfg, _NoUpdate(), mesh=mesh)
+    sync = torch.cuda.synchronize if device.type == "cuda" else lambda: None
+    program, seen = moe._part_rows, []
+
+    def recorded(rows):
+        def part_rows(*args):
+            seen.append(rows(*args))
+            return seen[-1]
+        return part_rows
+
+    variants = {"longest_run": program,
+                "no_read": lambda *args: max(out["longest_run"]["rows"]),
+                "static": lambda counts, before, cap, n_parts, T, *rest: min(cap, T)}
+    out = {name: {"step_s": []} for name in variants}
+    try:
+        for i in range(reps + 1):
+            for name, rows in variants.items():
+                moe._part_rows = recorded(rows)
+                seen.clear()
+                sync()
+                t0 = time.perf_counter()
+                loss = float(step(state, batch)[1]["loss"])
+                sync()
+                if i:
+                    out[name]["step_s"].append(time.perf_counter() - t0)
+                out[name].update(loss=loss, rows=list(seen))
+    finally:
+        moe._part_rows = program
+    return out
+
+
+def rank_tensor_parallel_full(rank, world, workdir, device_type):
+    """On 4 cards: granite-3-2b, all 40 layers, fp32, trained 2 AdamW steps
+    of `TP_FULL_TOKENS` unsharded on rank 0 (one card) and on (1, 4) and
+    (2, 2), from seed 0; a dbrx cut of 2 layers at full width, fp32, one
+    loss and gradient norm (no update) unsharded on rank 0 and on (1, 4),
+    4 experts a rank, and (2, 2); bf16 granite (the config's types),
+    `TP_BF16_STEPS` steps of `TP_BF16_TOKENS` with the card's train
+    phase's ``loss_chunk`` unsharded on rank 0 and on (1, 4): each step's
+    seconds and the card's peak bytes; the dbrx cut in its config's types
+    at `TP_BF16_TOKENS` on (2, 2) by `moe_rows_timing`."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import cut_depth
+    from repro_torch.models import init_lm
+    from repro_torch.parallel.comm import mesh_device
+    from repro_torch.parallel.sharding import (default_strategy, distribute_tree, param_specs,
+                                               state_specs)
+    from repro_torch.runtime.elastic import MeshPlan
+    from repro_torch.train import (Trainer, TrainerConfig, init_state, make_optimizer,
+                                   make_train_step, state_shapes)
+
+    meshes = {shape: MeshPlan(shape, ("data", "model")).build(device_type=device_type)
+              for shape in TP_MESHES}
+    device = mesh_device(meshes[TP_MESHES[0]])
+    fp32 = lambda cfg: dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    out = {}
+
+    # Each part runs on one card (rank 0) first, while the card is empty,
+    # and then on the meshes: the other ranks wait in the meshes' first
+    # collective meanwhile.
+    cfg, opt = fp32(get_config("granite-3-2b")), make_optimizer("adamw", lr=1e-3)
+    data = TokenBatches(cfg.vocab_size, *TP_FULL_TOKENS)
+    tcfg = TrainerConfig(steps=TP_STEPS, log_every=10 ** 9)
+    fresh = lambda: init_state(torch.Generator(device).manual_seed(0), cfg, opt, device=device)
+    if rank == 0:
+        plain = Trainer(cfg, tcfg, data, optimizer=opt, device=device)
+        plain.run(state=fresh())
+        out["granite"] = plain.metrics_log
+        del plain
+        _free(device)
+    for shape, mesh in meshes.items():
+        specs = state_specs(state_shapes(cfg, opt), mesh, default_strategy(mesh))
+        trainer = Trainer(cfg, tcfg, data, mesh=mesh, optimizer=opt)
+        trainer.run(state=distribute_tree(fresh(), specs, mesh))
+        out[("granite", shape)] = trainer.metrics_log
+        del trainer
+        _free(device)
+
+    cfg = fp32(cut_depth(get_config("dbrx-132b"), 2))
+    batch = {k: torch.from_numpy(v).to(device) for k, v in
+             TokenBatches(cfg.vocab_size, *TP_FULL_TOKENS).batch_at(0).items()}
+    state = lambda params: {"params": params, "opt": {},
+                            "step": torch.zeros((), dtype=torch.int32, device=device)}
+    if rank == 0:
+        params = init_lm(torch.Generator(device).manual_seed(0), cfg, device=device)
+        m = make_train_step(cfg, _NoUpdate())(state(params), batch)[1]
+        out["dbrx"] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+        del params, m
+        _free(device)
+    for shape, mesh in meshes.items():
+        params = init_lm(torch.Generator(device).manual_seed(0), cfg, device=device)
+        placed = distribute_tree(params, param_specs(params, mesh, default_strategy(mesh)), mesh)
+        del params
+        m = make_train_step(cfg, _NoUpdate(), mesh=mesh)(state(placed), batch)[1]
+        out[("dbrx", shape)] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                                "experts": cfg.n_experts,
+                                "experts_local": tuple(placed["blocks"]["pos0"]["moe"]["experts"]
+                                                       ["w_up"]["w"].to_local().shape)}
+        del placed, m
+        _free(device)
+
+    cfg = get_config("granite-3-2b")
+    opt = make_optimizer(cfg.optimizer, lr=1e-3)
+    data = TokenBatches(cfg.vocab_size, *TP_BF16_TOKENS)
+    tcfg = TrainerConfig(steps=TP_BF16_STEPS, log_every=10 ** 9, loss_chunk=1024)
+    runs = {"1x1": None, "1x4": meshes[(1, 4)]} if rank == 0 else {"1x4": meshes[(1, 4)]}
+    for name, mesh in runs.items():
+        state0 = init_state(torch.Generator(device).manual_seed(0), cfg, opt, device=device)
+        if mesh is not None:
+            state0 = distribute_tree(state0, state_specs(state0, mesh, default_strategy(mesh)),
+                                     mesh)
+        _free(device)
+        trainer = Trainer(cfg, tcfg, data, mesh=mesh, optimizer=opt, device=device)
+        trainer.run(state=state0)
+        out[("bf16", name)] = {
+            "step_s": [r["dt_s"] for r in trainer.metrics_log],
+            "loss": [r["loss"] for r in trainer.metrics_log],
+            "peak_bytes": (torch.cuda.max_memory_allocated(device)
+                           if device.type == "cuda" else None)}
+        del trainer, state0
+        _free(device)
+
+    cfg = cut_depth(get_config("dbrx-132b"), 2)
+    out["moe_rows"] = moe_rows_timing(meshes[(2, 2)], device, cfg, TP_BF16_TOKENS)
+    _free(device)
+    if device.type == "cuda":
+        # Whether the router's `bincount` reads a number back to the host.
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            torch.bincount(torch.arange(16, device=device), minlength=16)
+            out["bincount_reads_back"] = False
+        except RuntimeError:
+            out["bincount_reads_back"] = True
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out
+
+
+def check_tensor_parallel_full(results):
+    """`rank_tensor_parallel_full`'s runs: every rank's fp32 granite losses
+    (1e-5) and gradient norms (1e-4 relative) on each mesh follow the
+    one-card run, and so do the dbrx cut's loss and gradient norm (4
+    experts a rank at full width on (1, 4)); the bf16 steps' seconds and
+    peaks, a record (the median of the steps after the first), and rank
+    0's `moe_rows_timing`."""
+    import statistics
+
+    for r in results:
+        for shape in TP_MESHES:
+            same_log(r[("granite", shape)], results[0]["granite"])
+            same_log([r[("dbrx", shape)]], [results[0]["dbrx"]])
+        one_by_four = r[("dbrx", (1, 4))]
+        assert one_by_four["experts_local"][1] == one_by_four["experts"] // 4
+    median = lambda xs: statistics.median(xs[1:])
+    return {"granite_fp32": {"one_card": results[0]["granite"],
+                             **{f"{a}x{b}": results[0][("granite", (a, b))]
+                                for a, b in TP_MESHES}},
+            "dbrx_fp32": {"one_card": results[0]["dbrx"],
+                          **{f"{a}x{b}": results[0][("dbrx", (a, b))] for a, b in TP_MESHES}},
+            "granite_bf16": {name: dict(run, median_step_s=median(run["step_s"]))
+                             for name, run in (("1x4", results[0][("bf16", "1x4")]),
+                                               ("1x1", results[0][("bf16", "1x1")]))},
+            "granite_bf16_1x4_peaks": [r[("bf16", "1x4")]["peak_bytes"] for r in results],
+            "dbrx_bf16_2x2_rows": {name: dict(run, median_step_s=statistics.median(run["step_s"]))
+                                   for name, run in results[0]["moe_rows"].items()},
+            "bincount_reads_back": results[0].get("bincount_reads_back")}

@@ -2,7 +2,7 @@
 """The dry run's table for PERF.md, from the rows that
 ``python -m repro_torch.launch.dryrun --all --out results.json`` writes:
 
-    python3 tools/dryrun_table.py results.json
+    python3 tools/dryrun_table.py results.json [more.json ...]
 
 One line a cell that traced: FLOPs, bytes and wire bytes a device, the
 tally's peak, the three roofline terms, the bottleneck and MFU at the
@@ -13,9 +13,11 @@ import json
 import sys
 
 
-def main(path):
-    with open(path) as f:
-        rows = json.load(f)
+def main(*paths):
+    rows = []
+    for path in paths:
+        with open(path) as f:
+            rows += json.load(f)
     print("| cell | FLOPs / dev | bytes / dev | wire / dev | peak GB | t_compute s | "
           "t_memory s | t_collective s | bound | mfu@roofline |")
     print("| --- | --- | --- | --- | --- | --- | --- | --- | --- | --- |")
@@ -35,4 +37,4 @@ def main(path):
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(*sys.argv[1:])
