@@ -42,7 +42,12 @@ host process started with the run) and its verification step on the
 card (`repro_torch.launch.dryrun.verify_cell`: granite's train and
 decode steps measured beside the roofline of the same cut traced on
 meta; the card's FLOPs must equal the trace's, and the profiler's
-kernel launches the tally's scopes).  It checks that each path really went
+kernel launches the tally's scopes).  ``examples`` runs the port's five
+entry points (`repro_torch.examples`: quickstart, serve_lm, train_lm and
+its resume, fleet_runtime_demo, reconfiguration_demo) at their defaults
+on the card.  ``kernels`` also holds the rms_norm kernel's split-row
+entries (a mixer's norm on a "model" rank) against their plain versions
+and against the whole row's norm.  It checks that each path really went
 through its kernels (launch counts equal to their per-step formulas), that
 the kernels' path agrees with the plain path for serving and for training,
 and that a live slot (KV caches, and a recurrent stack's conv windows and
@@ -86,7 +91,7 @@ PHASES = ("build", "kernels", "adapt", "serve", "train", "sharded_train", "serve
           "serve_seamless", "train_seamless", "serve_qwen2vl", "train_qwen2vl",
           "path_vs_plain_seamless", "train_vs_fp32_seamless", "train_vs_plain_seamless",
           "path_vs_plain_qwen2vl", "train_vs_fp32_qwen2vl", "train_vs_plain_qwen2vl",
-          "migrate_qwen2vl")
+          "migrate_qwen2vl", "examples")
 
 
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5), "bfloat16": dict(atol=5e-2, rtol=5e-2)}
@@ -482,6 +487,55 @@ RMS_CASES = [((8, 1, 2048), "bfloat16"), ((300, 512), "float32"),
              ((8, 1, 1536), "bfloat16"), ((8192, 1536), "bfloat16"),   # qwen2-vl's d_model
              ((8, 1, 1024), "bfloat16"), ((8192, 1024), "bfloat16")]   # seamless's d_model
 
+# A row split over n ranks (the mixers' norms under tensor parallelism):
+# (rows shape, whole width, n, dtype).  zamba2's gated norm over d_inner
+# 7168 cut 8 ways, at the decode step and the training shape; xlstm's
+# mLSTM norm over 4096 cut 4 ways; fp32 and a ragged row count.
+SPLIT_NORM_CASES = [((8, 1), 7168, 8, "bfloat16"), ((TRAIN_BATCH, TRAIN_SEQ), 7168, 8,
+                                                     "bfloat16"),
+                    ((8, 1), 4096, 4, "bfloat16"), ((2, 300), 4096, 4, "bfloat16"),
+                    ((37, 5), 1024, 2, "float32")]
+SUMSQ_RTOL = 1e-5            # fp32 sums of squares, summed in another order
+
+
+def check_split_norm(torch, checks, rows, width, n, dt, device):
+    """The two split-row entries of the rms_norm kernel on a row of
+    ``width`` channels cut into ``n`` parts: each part's sum of squares
+    against the plain version (``SUMSQ_RTOL``); each part scaled from the
+    parts' summed sum against the plain version (``TOL``); the parts
+    together against the whole row's `rms_norm` (``TOL``).  Control: each
+    part scaled from its own sum alone, which must fail the last check."""
+    from repro_torch.kernels.rmsnorm import (rms_norm_plain, rms_norm_sumsq, rms_norm_sumsq_plain,
+                                             rms_sumsq, rms_sumsq_plain)
+    dtype = getattr(torch, dt)
+    x = rand(torch, (*rows, width), dtype, 21, device) * 3.0
+    scale = rand(torch, (width,), dtype, 22, device)
+    parts = [t.contiguous() for t in x.chunk(n, dim=-1)]
+    scales = [t.contiguous() for t in scale.chunk(n)]
+    sums = [rms_sumsq(t) for t in parts]
+    sum_err = max(float(((a - rms_sumsq_plain(t)).abs() / rms_sumsq_plain(t).abs()).max())
+                  for a, t in zip(sums, parts))
+    total = torch.stack(sums).sum(0)
+    got = [rms_norm_sumsq(t, total, sc, 1e-5, width) for t, sc in zip(parts, scales)]
+    torch.cuda.synchronize()
+    part_err, part_ratio = max(
+        (errors(torch, g, rms_norm_sumsq_plain(t, total, sc, 1e-5, width), dt)
+         for g, t, sc in zip(got, parts, scales)), key=lambda e: e[1])
+    err, ratio = errors(torch, torch.cat(got, -1), rms_norm_plain(x, scale, 1e-5), dt)
+    alone = torch.cat([rms_norm_sumsq(t, sq, sc, 1e-5, width)
+                       for t, sq, sc in zip(parts, sums, scales)], -1)
+    _, control = errors(torch, alone, rms_norm_plain(x, scale, 1e-5), dt)
+    checks.append(dict(kernel="rms_norm", case=f"row of {width} split {n} ways",
+                       shape=[*rows, width // n], dtype=dt, sumsq_rel_err=sum_err,
+                       max_abs_err=part_err, err_over_tol=part_ratio, whole_max_abs_err=err,
+                       whole_err_over_tol=ratio, control_err_over_tol=control, tol=TOL[dt]))
+    require(sum_err <= SUMSQ_RTOL, f"rms_sumsq {rows} {width}/{n}: relative error {sum_err}")
+    require(part_ratio <= 1.0 and ratio <= 1.0,
+            f"rms_norm_sumsq {rows} {width}/{n} {dt}: error {part_err} / {err} beyond tolerance")
+    require(control > 1.0, f"rms_norm_sumsq {rows} {width}/{n}: the control (each part's own "
+                           f"sum) passed")
+
+
 # (name, B, Sk, Hq, Hkv, D, dtype); kv_len is ragged, see ragged_lens.  bf16
 # groups of 3 to 8 run the tensor-core instance, fp32 and bf16 groups of 1
 # or 2 the SIMT one.
@@ -852,6 +906,8 @@ def phase_kernels(torch, device):
                            max_abs_err=err, err_over_tol=ratio, tol=TOL[dt]))
         require(got.shape == x.shape and got.dtype == x.dtype, f"rms_norm {shape}: shape/dtype")
         require(ratio <= 1.0, f"rms_norm {shape} {dt}: error {err} beyond tolerance")
+    for rows, width, n, dt in SPLIT_NORM_CASES:
+        check_split_norm(torch, checks, rows, width, n, dt, device)
 
     edge_lens = torch.tensor(DECODE_EDGE_LENS, dtype=torch.int32, device=device)
     decode_checks = [check_decode(torch, case, ragged_lens(torch, case[1], case[2], device))
@@ -939,6 +995,13 @@ def draw_requests(n, vocab, seed=0):
             for i in range(n)]
 
 
+def outputs_digest(requests):
+    """sha256 of every request's generated tokens, in request order: two
+    runs served alike bit for bit print the same digest."""
+    import hashlib
+    return hashlib.sha256(json.dumps([list(r.output) for r in requests]).encode()).hexdigest()
+
+
 def record_logits(torch, engine, keep):
     """Wrap the engine's decode step: checks every step's logits for
     non-finite values (on the device) and keeps them when ``keep``."""
@@ -1016,6 +1079,7 @@ def phase_serve(torch, device, cfg, n_requests, phase="serve"):
          max_len=SERVE_MAX_LEN, requests=n_requests, steps=steps, tokens_generated=tokens,
          slot_tokens_processed=sum(len(r.prompt) + len(r.output) - 1 for r in requests),
          seconds=seconds, generated_tokens_per_s=tokens / seconds,
+         outputs_sha256=outputs_digest(requests),
          ms_per_step=seconds / steps * 1e3, decode_step_device_ms=step_device_ms,
          decode_step_call_ms=step_call_ms,
          device_idle_share=(None if step_device_ms is None
@@ -1799,6 +1863,12 @@ def phase_timing(torch, device, launches, resources):
     out[-1]["xlstm_mlstm_train"] = norm_times(
         rand(torch, (TRAIN_BATCH, TRAIN_SEQ, 4096), dtype, 11, device), mlstm_scale)
 
+    # The split-row entries (a mixer's norm on a "model" rank): zamba2's
+    # gated norm over d_inner 7168 cut 8 ways at the training shape.
+    out[-1]["split_zamba2_gated_train_of_8"] = split_norm_times(
+        torch, timer, rand(torch, (TRAIN_BATCH, TRAIN_SEQ, 7168 // 8), dtype, 12, device),
+        rand(torch, (7168 // 8,), dtype, 13, device), 7168)
+
     counts = by_path("decode_attention")
     with SmiSampler() as smi:
         rows = decode_times(torch, timer, device, DECODE_TIMED[0][1], resources, smi)
@@ -1835,6 +1905,32 @@ def phase_timing(torch, device, launches, resources):
                     launches=sum(counts.values()), launches_by_path=counts,
                     library="none: no single PyTorch call computes the scan",
                     **ssm_times(torch, timer, device, SSM_TRAIN, resources)))
+    return out
+
+
+def split_norm_times(torch, timer, x, scale, width):
+    """Times of the two split-row entries of the rms_norm kernel on a
+    rank's part ``x`` of rows ``width`` wide (the sum of squares, then the
+    norm from a given sum), each beside its plain version and its bound;
+    no single PyTorch call computes either (library: none)."""
+    from repro_torch.kernels.rmsnorm import (rms_norm_sumsq, rms_norm_sumsq_plain, rms_sumsq,
+                                             rms_sumsq_plain, work_norm_sumsq, work_sumsq)
+    total = rms_sumsq(x) * (width / x.shape[-1])
+    err, ratio = errors(torch, rms_norm_sumsq(x, total, scale, 1e-5, width),
+                        rms_norm_sumsq_plain(x, total, scale, 1e-5, width), "bfloat16")
+    require(ratio <= 1.0, f"timing: rms_norm_sumsq {list(x.shape)} error {err}")
+    out = dict(shape=list(x.shape), width=width, max_abs_err=err, library_ms=None)
+    for name, fn, plain, work_of in (
+            ("sumsq", lambda: rms_sumsq(x), lambda: rms_sumsq_plain(x), lambda: work_sumsq(x)),
+            ("norm_from_sumsq", lambda: rms_norm_sumsq(x, total, scale, 1e-5, width),
+             lambda: rms_norm_sumsq_plain(x, total, scale, 1e-5, width),
+             lambda: work_norm_sumsq(x, scale))):
+        ms, call = timer(fn, iters=200)
+        plain_ms, _ = timer(plain, iters=200)
+        flops, nbytes = work_of()
+        b_ms, b_by = bound(nbytes, flops, "float32")
+        out[name] = dict(ms=ms, call_ms=call, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         bytes=nbytes)
     return out
 
 
@@ -2684,6 +2780,81 @@ def live_move(torch, phase, cfg, root, moved, saved, want_loss):
     return record, launches
 
 
+# --------------------------------------------------------------- examples --
+EXAMPLE_RESUME_STEPS = 70      # train_lm's second run: resumes at its default 60
+
+
+def phase_examples(torch):
+    """The port's five entry points (`repro_torch.examples`), each `main()`
+    at its defaults, on the card by default (train_lm's checkpoints under
+    build/examples/, removed at the end; then run again to
+    EXAMPLE_RESUME_STEPS, resuming at its last step).  What each printed
+    goes to build/examples/printed.txt.  Checks: quickstart learns,
+    serve_lm serves every request, train_lm resumes, the fleet demo's
+    three policies ran, and the reconfiguration demo's LP lowers S and its
+    live move restores the job bit for bit on (1, 1) and trains on.
+    Returns (each one's record and seconds, the launches of the five)."""
+    import contextlib
+    import importlib
+    import shutil
+
+    root = Path(__file__).resolve().parent / "build" / "examples"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    finite = lambda xs: len(xs) > 0 and all(math.isfinite(x) for x in xs)
+    records, seconds = {}, {}
+    zero_counts()
+    with open(root / "printed.txt", "w") as printed:
+        def run(key, name, argv):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                out = importlib.import_module(f"repro_torch.examples.{name}").main(argv)
+            torch.cuda.synchronize()
+            seconds[key] = time.perf_counter() - t0
+            return out
+
+        q = run("quickstart", "quickstart", [])
+        require(q["device"].startswith("cuda") and len(q["losses"]) == 30
+                and finite(q["losses"]) and q["learning"],
+                f"examples: quickstart {q['first_loss']} -> {q['last_loss']} on {q['device']}")
+        records["quickstart"] = q
+        sv = run("serve_lm", "serve_lm", [])
+        require(sv["served"] == sv["requests"] and sv["tokens"] == sv["requests"] * 16,
+                f"examples: serve_lm served {sv['served']} of {sv['requests']}")
+        sv.pop("streams")
+        records["serve_lm"] = sv
+        ckpt = ["--ckpt-dir", str(root / "train_lm")]
+        tr = run("train_lm", "train_lm", ckpt)
+        again = run("train_lm_resumed", "train_lm", ckpt + ["--steps", str(EXAMPLE_RESUME_STEPS)])
+        require(tr["start_step"] == 0 and len(tr["losses"]) == 60 and finite(tr["losses"])
+                and again["start_step"] == 60 and len(again["losses"]) == 10
+                and finite(again["losses"]),
+                f"examples: train_lm ran from {tr['start_step']} and resumed at "
+                f"{again['start_step']}")
+        records["train_lm"] = dict(tr, resumed=again)
+        fl = run("fleet_runtime_demo", "fleet_runtime_demo", [])
+        require(list(fl["policies"]) == ["milp", "decomposed", "noop"]
+                and fl["policies"]["noop"]["counters"]["moves"] == 0,
+                f"examples: the fleet demo ran {list(fl['policies'])}")
+        records["fleet_runtime_demo"] = fl
+        rc = run("reconfiguration_demo", "reconfiguration_demo", [])
+        mv = rc.get("live_move", {})
+        require(rc["n_moved"] > 0 and rc["s_after"] <= rc["s_before"]
+                and mv.get("restored_bit_for_bit") and mv.get("mesh") == [1, 1]
+                and mv.get("resumed_at_step") == 6 and len(mv.get("losses_after", [])) == 4
+                and finite(mv["losses_after"]),
+                f"examples: the reconfiguration demo moved {rc['n_moved']} jobs, S "
+                f"{rc['s_before']} -> {rc['s_after']}, live move {mv}")
+        records["reconfiguration_demo"] = rc
+    torch.cuda.synchronize()
+    launches = read_counts()
+    for name in ("rms_norm", "flash_attention", "decode_attention"):
+        require(launches[name] > 0, f"examples: {name} was not launched")
+    shutil.rmtree(root / "train_lm", ignore_errors=True)
+    emit(phase="examples", seconds=seconds, launches=launches, **records)
+    return launches
+
+
 # -------------------------------------------------------------------- MoE --
 def record_routes():
     """Wrap the MoE router so that each call's router probabilities and
@@ -3013,6 +3184,8 @@ def main(argv=None):
             launches["relocate_train"], launches["live_move"] = timed(
                 "relocate_train", phase_relocate_train, torch, device,
                 paths["relocate_train"][0])
+        if run("examples"):
+            launches["examples"] = timed("examples", phase_examples, torch)
         if run("timing"):
             kernels = timed("timing", phase_timing, torch, device, launches, resources)
             emit(phase="timing", kernels=kernels)

@@ -191,6 +191,10 @@ _PTR, _INT, _I64, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, cty
 SIGNATURES = {
     # x, scale, out, rows, d, eps, is_bf16, stream
     "repro_rms_norm": [_PTR, _PTR, _PTR, _INT, _INT, _FLOAT, _INT, _PTR],
+    # x, sumsq, rows, d, is_bf16, stream
+    "repro_rms_sumsq": [_PTR, _PTR, _INT, _INT, _INT, _PTR],
+    # x, scale, sumsq, out, rows, d, d_norm, eps, is_bf16, stream
+    "repro_rms_norm_sumsq": [_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _FLOAT, _INT, _PTR],
     # q, k, v, kv_len, out, part_m, part_l, part_acc, counters,
     # B, Sk, Hq, Hkv, D, chunk, n_splits, is_bf16, stream
     "repro_decode_attention": [_PTR] * 9 + [_INT] * 9 + [_PTR],

@@ -36,6 +36,12 @@ def rms_norm(x, scale, eps: float = 1e-5):
     return _rmsnorm.rms_norm(x, scale, eps)
 
 
+def split_rms_norm(x, scale, eps: float, d_norm: int, reduce):
+    """RMSNorm of a row split over ranks: see
+    `repro_torch.kernels.rmsnorm.split_rms_norm`."""
+    return _rmsnorm.split_rms_norm(x, scale, eps, d_norm, reduce, plain=_force_plain)
+
+
 def decode_attention(q, k_cache, v_cache, kv_len):
     if _force_plain:
         return _decode.decode_attention_plain(q, k_cache, v_cache, kv_len)

@@ -12,7 +12,16 @@ reference differentiates its jnp `rms_norm`; there is no Pallas backward).
 It is taken only where autograd needs it: a call with no gradient to track
 launches the kernel alone, so serving is untouched.
 
-Plain version: `repro_torch.models.layers.rms_norm`.
+A row split over the ranks of a tensor-parallel axis (the Mamba2 and
+xLSTM mixers' norms over d_inner, each rank holding its heads' channels)
+takes the same kernel through two more entries: `rms_sumsq` (each row's
+fp32 sum of squares over the rank's channels) and `rms_norm_sumsq` (the
+rank's channels scaled from the whole row's sum, which the caller sums
+over the ranks in between; `split_rms_norm` does the three steps, with
+the gradient).  Their launches count in `rms_norm.launches`.
+
+Plain versions: `repro_torch.models.layers.rms_norm`, `rms_sumsq_plain`,
+`rms_norm_sumsq_plain`.
 """
 
 from __future__ import annotations
@@ -94,6 +103,164 @@ class _RMSNormFn(torch.autograd.Function):
         dxhat = dyf * scale.float()
         dx = r * (dxhat - xhat * (dxhat * xhat).mean(dim=-1, keepdim=True))
         return dx.to(x.dtype), dscale.to(scale.dtype), None
+
+
+# ----------------------------------------------------------- split rows --
+def rms_sumsq_plain(x: torch.Tensor) -> torch.Tensor:
+    """Each row's sum of x^2 in fp32: (...,) of x (..., d)."""
+    return x.float().square().sum(dim=-1)
+
+
+def rms_norm_sumsq_plain(x: torch.Tensor, sumsq: torch.Tensor, scale: torch.Tensor,
+                         eps: float, d_norm: int) -> torch.Tensor:
+    """``x * rsqrt(sumsq / d_norm + eps) * scale``, fp32 math, output in x's
+    type; ``sumsq`` (...,) fp32 the whole row's sum of squares."""
+    r = torch.rsqrt(sumsq / d_norm + eps)[..., None]
+    return (x.float() * r * scale.float()).to(x.dtype)
+
+
+def work_sumsq(x: torch.Tensor) -> Tuple[int, int]:
+    """(FLOPs, bytes) of `rms_sumsq`: x read once, a fp32 sum a row
+    written; two fp32 operations an element (square, sum)."""
+    rows = x.numel() // x.shape[-1]
+    return 2 * x.numel(), x.numel() * x.element_size() + 4 * rows
+
+
+def work_norm_sumsq(x: torch.Tensor, scale: torch.Tensor) -> Tuple[int, int]:
+    """(FLOPs, bytes) of `rms_norm_sumsq`: x read and out written once,
+    the row's sum and scale read once; two fp32 operations an element
+    (normalise, scale)."""
+    rows = x.numel() // x.shape[-1]
+    return 2 * x.numel(), (2 * x.numel() + scale.numel()) * x.element_size() + 4 * rows
+
+
+def _check_rows(x: torch.Tensor, what: str) -> int:
+    """The row width of a CUDA call's ``x``; raises where the kernel does
+    not take it."""
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: x must be contiguous")
+    d = x.shape[-1]
+    vec = 16 // _ITEMSIZE[x.dtype]
+    if d % vec or d > _MAX_VECTORS * vec:
+        raise ValueError(f"{what}: d={d} must be a multiple of {vec} and at most "
+                         f"{_MAX_VECTORS * vec} for {x.dtype}")
+    if x.data_ptr() % 16:
+        raise ValueError(f"{what}: x must be 16-byte aligned")
+    return d
+
+
+def rms_sumsq(x: torch.Tensor) -> torch.Tensor:
+    """Each row's fp32 sum of squares, (...,) of x (..., d): the plain
+    version for a CPU tensor, the kernel for a CUDA tensor.  Not
+    differentiable (`split_rms_norm` is)."""
+    if x.dtype not in _ITEMSIZE:
+        raise TypeError(f"rms_sumsq takes float32 or bfloat16, not {x.dtype}")
+    with kernel_scope("rms_norm", lambda: work_sumsq(x), "float32"):
+        if not x.is_cuda:
+            return rms_sumsq_plain(x)
+        d = _check_rows(x, "rms_sumsq")
+        out = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+        rows = x.numel() // d
+        if rows == 0:
+            return out
+        with torch.cuda.device(x.device):
+            code = _build.library().repro_rms_sumsq(
+                x.data_ptr(), out.data_ptr(), rows, d, int(x.dtype == torch.bfloat16),
+                torch.cuda.current_stream().cuda_stream)
+        _build.check(code, "rms_sumsq")
+        rms_norm.launches += 1
+        return out
+
+
+def rms_norm_sumsq(x: torch.Tensor, sumsq: torch.Tensor, scale: torch.Tensor, eps: float,
+                   d_norm: int) -> torch.Tensor:
+    """``x * rsqrt(sumsq / d_norm + eps) * scale`` with ``sumsq`` (...,)
+    fp32 the whole row's sum of squares, of which x (..., d) holds d of
+    the ``d_norm`` channels: the plain version for a CPU tensor, the
+    kernel for a CUDA tensor.  Not differentiable (`split_rms_norm` is)."""
+    if x.dtype not in _ITEMSIZE or scale.dtype != x.dtype:
+        raise TypeError(f"rms_norm_sumsq: x {x.dtype}, scale {scale.dtype}")
+    if sumsq.dtype != torch.float32 or sumsq.shape != x.shape[:-1]:
+        raise ValueError(f"rms_norm_sumsq: sumsq {sumsq.dtype} {tuple(sumsq.shape)} for x "
+                         f"{tuple(x.shape)}")
+    if scale.shape != (x.shape[-1],) or d_norm < x.shape[-1]:
+        raise ValueError(f"rms_norm_sumsq: scale {tuple(scale.shape)}, d_norm {d_norm} for "
+                         f"x {tuple(x.shape)}")
+    with kernel_scope("rms_norm", lambda: work_norm_sumsq(x, scale), "float32"):
+        if not x.is_cuda:
+            return rms_norm_sumsq_plain(x, sumsq, scale, eps, d_norm)
+        d = _check_rows(x, "rms_norm_sumsq")
+        if scale.device != x.device or sumsq.device != x.device:
+            raise ValueError(f"rms_norm_sumsq: x on {x.device}, scale on {scale.device}, "
+                             f"sumsq on {sumsq.device}")
+        if not (scale.is_contiguous() and sumsq.is_contiguous()) or scale.data_ptr() % 16:
+            raise ValueError("rms_norm_sumsq: scale and sumsq must be contiguous, scale "
+                             "16-byte aligned")
+        out = torch.empty_like(x)
+        rows = x.numel() // d
+        if rows == 0:
+            return out
+        with torch.cuda.device(x.device):
+            code = _build.library().repro_rms_norm_sumsq(
+                x.data_ptr(), scale.data_ptr(), sumsq.data_ptr(), out.data_ptr(), rows, d,
+                d_norm, float(eps), int(x.dtype == torch.bfloat16),
+                torch.cuda.current_stream().cuda_stream)
+        _build.check(code, "rms_norm_sumsq")
+        rms_norm.launches += 1
+        return out
+
+
+class _SumSqFn(torch.autograd.Function):
+    """`rms_sumsq`; backward dx = 2 x dsumsq, in fp32."""
+
+    @staticmethod
+    def forward(ctx, x, plain):
+        ctx.save_for_backward(x)
+        return rms_sumsq_plain(x) if plain else rms_sumsq(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return (2.0 * x.float() * g[..., None]).to(x.dtype), None
+
+
+class _NormFromSumSqFn(torch.autograd.Function):
+    """`rms_norm_sumsq`; backward in fp32 with r = rsqrt(sumsq/d_norm + eps):
+    dx = r * dy * scale, dscale = sum over rows of dy * x * r, dsumsq =
+    -r^3 / (2 d_norm) * sum over the channels of dy * scale * x (the rest
+    of the whole row's gradient arrives through dsumsq, summed over the
+    ranks by the caller's reduction)."""
+
+    @staticmethod
+    def forward(ctx, x, sumsq, scale, eps, d_norm, plain):
+        ctx.save_for_backward(x, sumsq, scale)
+        ctx.eps, ctx.d_norm = eps, d_norm
+        if plain:
+            return rms_norm_sumsq_plain(x, sumsq, scale, eps, d_norm)
+        return rms_norm_sumsq(x, sumsq, scale, eps, d_norm)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, sumsq, scale = ctx.saved_tensors
+        xf, dyf = x.float(), dy.float()
+        r = torch.rsqrt(sumsq / ctx.d_norm + ctx.eps)[..., None]
+        dys = dyf * scale.float()
+        dx = r * dys
+        dscale = (dyf * xf * r).reshape(-1, x.shape[-1]).sum(0)
+        dsumsq = (-0.5 / ctx.d_norm) * r[..., 0] ** 3 * (dys * xf).sum(dim=-1)
+        return dx.to(x.dtype), dsumsq, dscale.to(scale.dtype), None, None, None
+
+
+def split_rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float, d_norm: int,
+                   reduce, plain: bool = False) -> torch.Tensor:
+    """RMSNorm of rows of ``d_norm`` channels of which ``x`` (..., d) holds
+    d, ``scale`` its d channels' scales: ``reduce`` (a differentiable sum
+    over the ranks holding the row's parts, with a summed gradient) takes
+    each row's sum of squares over the rank's channels to the whole
+    row's.  Two kernel launches for a CUDA tensor (``plain``: the plain
+    versions, as `ops.use_plain` asks); differentiable."""
+    sumsq = reduce(_SumSqFn.apply(x, plain))
+    return _NormFromSumSqFn.apply(x, sumsq, scale, eps, d_norm, plain)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

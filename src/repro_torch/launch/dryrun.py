@@ -25,12 +25,12 @@ has the reference's keys, with ``op_stats`` in place of ``hlo_stats``:
 Serving cells shard as the port serves on a mesh (`serve.engine`): the
 batch's rows over the data axes, each rank's cache its rows of its own kv
 heads.  Training and serving alike, the ranks along "model" split each
-layer's heads, FFN columns and experts, and the vocab where it divides
+layer's heads, FFN columns and experts, the Mamba2 and xLSTM mixers' heads
+where the axis divides them, and the vocab where it divides
 (`parallel.context`), so a rank's FLOPs are its share of the step's; the
-Mamba2 and xLSTM mixers and the norms every rank along "model" computes
-alike (ROADMAP item 14a-ii).  A MoE layer's expert rows on meta, where
-there are no router counts, are each data part's even share of the
-buffer (`models.moe._own_rows`).
+block norms every rank along "model" computes alike.  A MoE layer's
+expert rows on meta, where there are no router counts, are each data
+part's even share of the buffer (`models.moe._own_rows`).
 
 `verify_cell` is Step 6 of the adaptation flow on the card: the same step
 for real on a (1, 1) mesh of one GPU, with seeded random weights, at a cut

@@ -82,10 +82,15 @@ def local_heads(cfg: ModelConfig) -> Heads:
     """This rank's heads under the active context (all of them outside one,
     or where the query heads, or the kv heads' sharing, do not divide over
     the tensor-parallel axis)."""
-    n, hq, hkv = tp_size(), cfg.n_heads, cfg.n_kv_heads
+    return heads_of(cfg, tp_rank(), tp_size())
+
+
+def heads_of(cfg: ModelConfig, r: int, n: int) -> Heads:
+    """The heads of rank ``r`` of a tensor-parallel axis of ``n`` ranks."""
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
     if n == 1 or hq % n or (hkv % n and n % hkv):
         return Heads(hq, hkv)
-    r, q = tp_rank(), hq // n
+    q = hq // n
     if hkv % n == 0:
         return Heads(q, hkv // n, r * q, r * (hkv // n), True)
     return Heads(q, 1, r * q, r * q // (hq // hkv), True)   # n / hkv ranks share a kv head

@@ -15,6 +15,19 @@ chunks); decode carries (conv window, state) and steps in O(P·N).
 
 With a cache, `mamba2_block` writes the new conv window and state IN PLACE
 into the cache's tensors (the reference returns fresh arrays).
+
+Under a sharding context whose tensor-parallel axis has n > 1 ranks that
+divide the heads, each rank computes its H/n heads, as the reference's
+rule table cuts the mixer's leaves over "model": its heads' columns of
+z, x and dt, and B and C (N columns each, which every head reads) whole;
+the conv over its x channels and B and C; the scan over its heads; the
+gated norm over the whole d_inner from the ranks' summed sums of squares
+(two launches of the `rms_norm` kernel around a (B, S) fp32 all-reduce);
+its rows of ``out_proj``, the partial products summed over the axis.  Its
+cache holds its conv channels (d_inner/n + 2N) and its heads' states.
+Where the heads do not divide, every rank computes the whole mixer from
+its gathered leaves.  Outside a context, and on an axis of one rank, the
+mixer runs one packed ``in_proj`` product as it always has.
 """
 
 from __future__ import annotations
@@ -25,6 +38,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel.context import (copy_to_tp, reduce_from_tp, sum_over_tp, tp_heads, tp_slices,
+                                tp_whole_tree)
 from .config import ModelConfig
 from .layers import dtype_of, fused_rms_norm, init_linear
 
@@ -156,13 +171,39 @@ def ssd_reference(x, Bm, Cm, dt, A_log, D, init_state=None):
     return y, state
 
 
-def init_ssm_cache(cfg: ModelConfig, batch: int, device="cuda") -> Dict:
-    """conv window in the compute type; the recurrent state fp32 always."""
+def param_shapes(cfg: ModelConfig) -> Dict:
+    """The whole shape of each leaf of one layer's `init_mamba2`."""
     d_inner, H, N = _dims(cfg)
+    conv_ch = d_inner + 2 * N
+    return {"in_proj": {"w": (cfg.d_model, 2 * d_inner + 2 * N + H)},
+            "conv_w": (cfg.ssm_conv, conv_ch), "conv_b": (conv_ch,), "A_log": (H,), "D": (H,),
+            "dt_bias": (H,), "norm_scale": (d_inner,), "out_proj": {"w": (d_inner, cfg.d_model)}}
+
+
+def cache_spans(cfg: ModelConfig, rank: int, n: int) -> Dict:
+    """Where rank ``rank`` of ``n`` (heads split) holds its cache: for each
+    leaf, (the dim, from the end, that is cut; its whole size; the spans
+    ``[lo, hi)`` of the whole that the rank's part concatenates); None
+    where the heads do not divide and every rank holds the whole cache."""
+    d_inner, H, N = _dims(cfg)
+    if H % n:
+        return None
+    c, h = d_inner // n, H // n
+    return {"conv": (-1, d_inner + 2 * N, [(rank * c, (rank + 1) * c), (d_inner, d_inner + 2 * N)]),
+            "state": (-3, H, [(rank * h, (rank + 1) * h)])}
+
+
+def init_ssm_cache(cfg: ModelConfig, batch: int, device="cuda") -> Dict:
+    """conv window in the compute type; the recurrent state fp32 always.
+    Under a context that splits the heads, the rank's conv channels and
+    heads' states."""
+    d_inner, H, N = _dims(cfg)
+    split = tp_heads(H)
+    n = 1 if split is None else split[0]
     return {
-        "conv": torch.zeros((batch, cfg.ssm_conv - 1, d_inner + 2 * N),
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, d_inner // n + 2 * N),
                             dtype=dtype_of(cfg.compute_dtype), device=device),
-        "state": torch.zeros((batch, H, cfg.mamba_headdim, N), dtype=torch.float32,
+        "state": torch.zeros((batch, H // n, cfg.mamba_headdim, N), dtype=torch.float32,
                              device=device),
     }
 
@@ -180,44 +221,87 @@ def mamba2_block(
     `ssd_reference`; no cache and ``S % ssm_chunk == 0`` takes the
     `ssm_scan` kernel (its plain version for a CPU tensor); anything else
     the chunked scan `ssd_chunked` (``chunk=1`` when S does not divide).
-    ``cfg.ssm_impl`` is not consulted."""
+    ``cfg.ssm_impl`` is not consulted.  Under a context that splits the
+    heads the rank computes its own (see the module's docstring)."""
     d_inner, H, N = _dims(cfg)
+    split = tp_heads(H)
+    if split is not None:
+        return _mamba2_part(params, x, cfg, cache, *split)
+    params = tp_whole_tree(params, param_shapes(cfg))
     cd = dtype_of(cfg.compute_dtype)
     B, S, _ = x.shape
     proj = torch.matmul(x.to(cd), params["in_proj"]["w"].to(cd))
     z, xs, Bm, Cm, dt_raw = torch.split(proj, [d_inner, d_inner, N, N, H], dim=-1)
+    y, new_cache = _conv_and_scan(xs, Bm, Cm, dt_raw, cfg, cache, params["conv_w"],
+                                  params["conv_b"], params["dt_bias"], params["A_log"],
+                                  params["D"])
+    y = fused_rms_norm(y * F.silu(z), params["norm_scale"], cfg.norm_eps)
+    out = torch.matmul(y, params["out_proj"]["w"].to(cd))
+    return out, new_cache
+
+
+def _conv_and_scan(xs, Bm, Cm, dt_raw, cfg, cache, conv_w, conv_b, dt_bias, A_log, D):
+    """The conv over (x, B, C), the gates and the scan of the heads whose
+    channels ``xs`` holds; writes the cache.  Returns (y (B, S, channels)
+    in the compute type, the cache)."""
+    cd = dtype_of(cfg.compute_dtype)
+    B, S, channels = xs.shape
+    N = Bm.shape[-1]
     conv_in = torch.cat([xs, Bm, Cm], dim=-1)
     conv_out, conv_state = causal_conv(
-        conv_in, params["conv_w"].to(cd), params["conv_b"].to(cd),
-        None if cache is None else cache["conv"],
-    )
+        conv_in, conv_w.to(cd), conv_b.to(cd), None if cache is None else cache["conv"])
     conv_out = F.silu(conv_out)
     # Views of conv_out: the kernel reads them at its row stride, uncopied.
-    xs, Bm, Cm = torch.split(conv_out, [d_inner, N, N], dim=-1)
-    dt = F.softplus(dt_raw.to(torch.float32) + params["dt_bias"][None, None])
-    xh = xs.reshape(B, S, H, cfg.mamba_headdim)
+    xs, Bm, Cm = torch.split(conv_out, [channels, N, N], dim=-1)
+    dt = F.softplus(dt_raw.to(torch.float32) + dt_bias[None, None])
+    xh = xs.reshape(B, S, channels // cfg.mamba_headdim, cfg.mamba_headdim)
 
     init_state = None if cache is None else cache["state"]
     if S == 1:
         # Decode: exact single-step recurrence.
-        y, state = ssd_reference(xh, Bm, Cm, dt, params["A_log"], params["D"],
-                                 init_state=init_state)
+        y, state = ssd_reference(xh, Bm, Cm, dt, A_log, D, init_state=init_state)
     elif S % cfg.ssm_chunk == 0 and init_state is None:
         from repro_torch.kernels import ops as kops
-        y, state = kops.ssm_scan(xh, Bm, Cm, dt, params["A_log"], params["D"],
-                                 chunk=cfg.ssm_chunk)
+        y, state = kops.ssm_scan(xh, Bm, Cm, dt, A_log, D, chunk=cfg.ssm_chunk)
     else:
         # Prefill into a cache (state carried), or S not a multiple of the chunk.
         chunk = cfg.ssm_chunk if S % cfg.ssm_chunk == 0 else 1
-        y, state = ssd_chunked(xh, Bm, Cm, dt, params["A_log"], params["D"], chunk,
-                               init_state=init_state)
+        y, state = ssd_chunked(xh, Bm, Cm, dt, A_log, D, chunk, init_state=init_state)
     new_cache = None
     if cache is not None:
         cache["conv"].copy_(conv_state)
         cache["state"].copy_(state)
         new_cache = cache
+    return y.reshape(B, S, channels).to(cd), new_cache
 
-    y = y.reshape(B, S, d_inner).to(cd)
-    y = fused_rms_norm(y * F.silu(z), params["norm_scale"], cfg.norm_eps)
-    out = torch.matmul(y, params["out_proj"]["w"].to(cd))
-    return out, new_cache
+
+def _mamba2_part(params, x, cfg: ModelConfig, cache, n: int, r: int):
+    """`mamba2_block` on rank ``r`` of ``n``: its H/n heads (see the
+    module's docstring).  The packed leaves are taken segment by segment
+    (`tp_slices`), each gradient summed over the axis: B's and C's, which
+    every rank's heads read, are partial sums over each rank's heads."""
+    from repro_torch.kernels import ops as kops
+
+    d_inner, H, N = _dims(cfg)
+    shapes = param_shapes(cfg)
+    c, h = d_inner // n, H // n
+    cd = dtype_of(cfg.compute_dtype)
+    mine = lambda base, width: (base + r * width, base + (r + 1) * width)
+    bc = (2 * d_inner, 2 * d_inner + 2 * N)
+    w = tp_slices(params["in_proj"]["w"], shapes["in_proj"]["w"], -1,
+                  [mine(0, c), mine(d_inner, c), bc, mine(2 * d_inner + 2 * N, h)])
+    proj = torch.matmul(copy_to_tp(x).to(cd), w.to(cd))
+    z, xs, Bm, Cm, dt_raw = torch.split(proj, [c, c, N, N, h], dim=-1)
+    conv = [mine(0, c), (d_inner, d_inner + 2 * N)]
+    heads = lambda k: tp_slices(params[k], shapes[k], 0, [mine(0, h)])
+    y, new_cache = _conv_and_scan(
+        xs, Bm, Cm, dt_raw, cfg, cache,
+        tp_slices(params["conv_w"], shapes["conv_w"], -1, conv),
+        tp_slices(params["conv_b"], shapes["conv_b"], 0, conv),
+        heads("dt_bias"), heads("A_log"), heads("D"))
+    # The gated norm over the whole d_inner: each row's sum of squares
+    # over the rank's channels, summed over the axis.
+    scale = tp_slices(params["norm_scale"], shapes["norm_scale"], 0, [mine(0, c)])
+    y = kops.split_rms_norm(y * F.silu(z), scale, cfg.norm_eps, d_inner, sum_over_tp)
+    w_out = tp_slices(params["out_proj"]["w"], shapes["out_proj"]["w"], 0, [mine(0, c)])
+    return reduce_from_tp(torch.matmul(y, w_out.to(cd))), new_cache

@@ -37,10 +37,11 @@ period, so that one period's parameters are gathered at a time; outside a
 sharding context the gather returns its input.  Each rank keeps its shard
 along the tensor-parallel axis ("model") and computes its own share of
 the step: its attention heads (`attention`), FFN columns (`ffn`) and
-experts (`moe_ffn`), and, where the axis divides the vocabulary, its
-vocab slice of the lookup, the logits and the loss (`lm_loss`'s
-vocab-parallel cross-entropy).  The norms and the Mamba2 and xLSTM
-mixers every rank along the axis computes alike.
+experts (`moe_ffn`), the heads of its Mamba2 and xLSTM mixers
+(`mamba2_block`, `mlstm_block`, `slstm_block`) and, where the axis divides
+the vocabulary, its vocab slice of the lookup, the logits and the loss
+(`lm_loss`'s vocab-parallel cross-entropy).  The block norms every rank
+along the axis computes alike.
 """
 
 from __future__ import annotations
@@ -73,6 +74,7 @@ from .attention import (
     attention,
     flash_forward_computing,
     init_attention,
+    heads_of,
     init_kv_cache,
     local_heads,
     project_kv,
@@ -96,6 +98,7 @@ from .layers import (
     vocab_part,
 )
 from .moe import init_moe, moe_ffn
+from .ssm import cache_spans as ssm_cache_spans
 from .ssm import init_mamba2, init_ssm_cache, mamba2_block
 from .xlstm import (
     init_mlstm,
@@ -103,7 +106,9 @@ from .xlstm import (
     init_slstm,
     init_slstm_cache,
     mlstm_block,
+    mlstm_cache_spans,
     slstm_block,
+    slstm_cache_spans,
 )
 
 
@@ -193,6 +198,26 @@ def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
             c["cross"] = init_kv_cache(cfg, batch, cross_len, cd, device)
         return c
     raise ValueError(kind)
+
+
+_CACHE_SPANS = {BLOCK_MAMBA2: ssm_cache_spans, BLOCK_MLSTM: mlstm_cache_spans,
+                BLOCK_SLSTM: slstm_cache_spans}
+
+
+def block_cache_spans(cfg: ModelConfig, kind: str, rank: int, n: int) -> Dict:
+    """Where rank ``rank`` of a tensor-parallel axis of ``n`` ranks holds
+    its part of a ``kind`` block's cache: for each leaf that a split cuts
+    (by `ssm.cache_spans`'s convention; the K/V of the rank's kv heads,
+    which ranks sharing a kv head hold alike), (dim from the end, whole
+    size, spans); an empty dict where the rank holds the whole cache."""
+    if kind in _CACHE_SPANS:
+        spans = _CACHE_SPANS[kind](cfg, rank, n) if n > 1 else None
+        return {} if spans is None else {"mixer": spans}
+    heads = heads_of(cfg, rank, n)
+    if not heads.split:
+        return {}
+    kv = (-2, cfg.n_kv_heads, [(heads.kv0, heads.kv0 + heads.n_kv)])
+    return {"attn": {"k": kv, "v": kv}, "cross": {"k": kv, "v": kv}}
 
 
 def init_lm(generator: torch.Generator, cfg: ModelConfig, device=None) -> Dict:

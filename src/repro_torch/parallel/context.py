@@ -14,15 +14,19 @@ reference's rank check).  What the context does carry:
     ``strat.ep``, "model"), where the rule table cut it: each rank then
     computes its own heads, FFN columns, vocab rows and experts, as the
     reference's SPMD program splits the same rules.  The Mamba2 and xLSTM
-    mixers' leaves are gathered whole (their packed projections do not cut
-    by columns; ROADMAP item 14a-ii), and every rank along "model"
-    computes those mixers alike.
-  * the tensor-parallel axis (`tp_size`, `tp_rank`, `tp_group`) and
-    Megatron's two pieces over it (`copy_to_tp`, `reduce_from_tp`), which
-    return their input with no collective on an axis of one rank, so that
-    a (1, 1) mesh computes bit for bit what one device does; `tp_part` and
-    `tp_whole` give a layer the part of a weight it uses, whether the
-    weight arrives cut or whole.
+    mixers keep their shards too: where their heads divide over "model"
+    each rank computes its heads, taking each segment of a packed leaf
+    (Mamba2's [z, x, B, C, dt] ``in_proj``, mLSTM's [x, z] ``up_proj``,
+    the gates) through `tp_slices`; where they do not, the mixer gathers
+    its leaves whole (`tp_whole_tree`) and every rank computes it alike.
+  * the tensor-parallel axis (`tp_size`, `tp_rank`, `tp_group`,
+    `tp_heads`) and Megatron's two pieces over it (`copy_to_tp`,
+    `reduce_from_tp`, and `sum_over_tp` for a sum each rank uses in its
+    own way), which return their input with no collective on an axis of
+    one rank, so that a (1, 1) mesh computes bit for bit what one device
+    does; `tp_part`, `tp_slices` and `tp_whole` give a layer the part of
+    a weight it uses, whether the weight arrives cut or whole, and
+    `gather_tp` / `tp_gather_whole` an activation's parts of every rank.
   * which mesh dims cut the batch, so that a layer whose result depends on
     the whole batch (the MoE layer's capacity and load balance) can gather
     what it needs across them (`dp_gather`); `models.moe` takes its
@@ -42,6 +46,7 @@ from typing import Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from .._tree import tree_map
 from .comm import (all_gather_dim, copy_to, dp_dims, gather, gather_param, gather_sum,
                    is_dtensor, reduce_from)
 from .sharding import ShardingStrategy, axis_sizes
@@ -148,24 +153,22 @@ def _model_dims(mesh, strat) -> Tuple[int, ...]:
 def gather_params(tree, experts: bool = False):
     """``tree`` with each DTensor leaf gathered over the data-parallel mesh
     dims (differentiably, `comm.gather_param`), its shard along the
-    tensor-parallel and expert axes kept; under a ``mixer`` key gathered
-    whole.  A subtree under an ``experts`` key is left as it is unless
-    ``experts`` (the MoE layer gathers its own experts).  Outside a context
-    the tree is returned as it is."""
+    tensor-parallel and expert axes kept.  A subtree under an ``experts``
+    key is left as it is unless ``experts`` (the MoE layer gathers its own
+    experts).  Outside a context the tree is returned as it is."""
     if _CTX is None:
         return tree
     mesh, strat = _CTX
     keep = _model_dims(mesh, strat)
 
-    def walk(t, kept):
+    def walk(t):
         if isinstance(t, dict):
-            return {k: (v if k == "experts" and not experts
-                        else walk(v, () if k == "mixer" else kept)) for k, v in t.items()}
+            return {k: (v if k == "experts" and not experts else walk(v)) for k, v in t.items()}
         if isinstance(t, list):
-            return [walk(v, kept) for v in t]
-        return gather_param(t, strat, keep=kept) if is_dtensor(t) else t
+            return [walk(v) for v in t]
+        return gather_param(t, strat, keep=keep) if is_dtensor(t) else t
 
-    return walk(tree, keep)
+    return walk(tree)
 
 
 # ------------------------------------------------------ tensor parallel --
@@ -235,20 +238,77 @@ def max_over_tp(x: torch.Tensor) -> torch.Tensor:
 def tp_part(w: torch.Tensor, dim: int, whole: int, lo: int, hi: int) -> torch.Tensor:
     """Indices ``[lo, hi)`` along ``dim`` of a weight ``whole`` long there,
     which arrives as this rank's chunk of it (kept by `gather_params`) or
-    whole; the rank computes with that part, and the others with theirs.
-    The gradient is summed over the tensor-parallel axis: a chunk that is
-    the part itself passes through, a chunk that is not is all-gathered
-    with a reduce-scattered gradient, a whole weight has its gradient
-    summed."""
+    whole; the rank computes with that part, and the others with theirs
+    (`tp_slices` with one span)."""
+    shape = list(w.shape)
+    shape[dim] = whole
+    return tp_slices(w, shape, dim, [(lo, hi)])
+
+
+def tp_heads(n_heads: int) -> Optional[Tuple[int, int]]:
+    """(ranks, this rank's index) of the tensor-parallel axis where it has
+    two or more ranks and they divide ``n_heads``: a mixer then computes
+    its ``n_heads / ranks`` heads; None where it computes them all (one
+    rank, no context, or heads that do not divide)."""
     n = tp_size()
-    if w.shape[dim] != whole:                     # this rank's chunk
-        r = tp_rank()
-        if (lo, hi) == (r * w.shape[dim], (r + 1) * w.shape[dim]):
+    if n == 1 or n_heads % n:
+        return None
+    return n, tp_rank()
+
+
+def sum_over_tp(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the tensor-parallel axis of the ranks' partial results,
+    where each rank uses the sum in its own way (its own heads' columns of
+    it): the backward sums the cotangent over the axis too."""
+    return copy_to_tp(reduce_from_tp(x))
+
+
+def tp_slices(w: torch.Tensor, shape, dim: int, spans) -> torch.Tensor:
+    """The spans ``[lo, hi)`` along ``dim`` of a weight whose whole shape is
+    ``shape``, concatenated along ``dim``, for a computation in which each
+    rank of the tensor-parallel axis uses its own spans.  The weight arrives
+    whole or as this rank's chunk along any one dim (kept by
+    `gather_params`): a chunk that is the one span passes through, another
+    chunk is all-gathered with a reduce-scattered gradient, and a whole
+    weight has its gradient summed over the axis."""
+    n, cut = tp_size(), [k for k in range(w.ndim) if w.shape[k] != shape[k]]
+    dim %= w.ndim
+    if cut:
+        k = cut[0]
+        r, size = tp_rank(), w.shape[k]
+        if k == dim and list(spans) == [(r * size, (r + 1) * size)]:
             return w
-        w = gather_sum(w, dim, tp_group(), n)
+        w = gather_sum(w, k, tp_group(), n)
     else:
         w = copy_to(w, tp_group(), n)
-    return w.narrow(dim, lo, hi - lo)
+    parts = [w.narrow(dim, lo, hi - lo) for lo, hi in spans]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+
+
+def tp_whole_tree(tree, shapes):
+    """``tree`` with each leaf made whole (`tp_whole`) along the dim where
+    it arrives as this rank's chunk of the leaf's shape in ``shapes`` (a
+    tree of the same structure), for a computation every rank repeats
+    alike; a whole leaf as it is."""
+    def whole(w, shape):
+        cut = [k for k in range(w.ndim) if w.shape[k] != shape[k]]
+        return tp_whole(w, cut[0], shape[cut[0]]) if cut else w
+
+    return tree_map(whole, tree, shapes)
+
+
+def gather_tp(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The ranks' parts of an activation all-gathered along ``dim``, for a
+    computation in which each rank uses the whole in its own way: the
+    backward sums the cotangent over the axis and keeps this rank's part."""
+    return gather_sum(x, dim, tp_group(), tp_size())
+
+
+def tp_gather_whole(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The ranks' parts of an activation all-gathered along ``dim``, for a
+    computation every rank repeats alike: the backward keeps this rank's
+    part of the cotangent."""
+    return gather(x, dim % x.ndim, tp_group(), tp_size(), tp_rank())
 
 
 def tp_whole(w: torch.Tensor, dim: int, whole: int) -> torch.Tensor:

@@ -22,9 +22,11 @@ experts and vocab of each layer; the logits' vocab slices are gathered
 before they are returned.  The cache keeps the port's own layout: a rank's
 rows, and of those its own kv heads (`models.attention.local_heads`),
 where the reference's cache rule (`parallel.sharding.cache_specs`) cuts
-the sequence over "model".  `ServeEngine` takes the mesh too: every rank
-keeps the slots' bookkeeping alike from the whole batch's logits, and its
-`export_slot` and `import_slot` move a slot between the ranks' rows.
+the sequence over "model", and its Mamba2 and xLSTM mixers' channels and
+heads, as that rule cuts them.  `ServeEngine` takes the mesh too: every
+rank keeps the slots' bookkeeping alike from the whole batch's logits, and
+its `export_slot` and `import_slot` move a slot between the ranks' rows,
+and between a mesh and one device: the payload is the one-device payload.
 """
 
 from __future__ import annotations
@@ -37,12 +39,14 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch._tree import tree_map
 from repro_torch.models import ModelConfig, forward, init_cache, logits_fn
-from repro_torch.models.transformer import encode, reset_slot
+from repro_torch.models.config import BLOCK_ATTN
+from repro_torch.models.transformer import block_cache_spans, encode, reset_slot, stack_layout
 from repro_torch.parallel.context import (activation_sharding, batch_part, dp_gather,
-                                         gather_params)
+                                         gather_params, tp_group, tp_rank, tp_size)
 from repro_torch.parallel.sharding import batch_mesh_dims, default_strategy, local_batch
 
 
@@ -284,14 +288,16 @@ class ServeEngine:
     # decoding continues bit-identically.  In an MoE stack a decode step's
     # slots share the experts' capacity, so there the continuation is
     # bit-identical only beside the same neighbours in the same slots.  On a
-    # mesh the payload is each rank's own kv heads of the slot (the other
-    # state whole): it imports into an engine on a mesh of the same shape.
+    # mesh the payload is made whole: the ranks' kv heads and mixer
+    # channels and heads of the slot are gathered over "model" on export and
+    # each rank takes its own on import, so a slot moves between meshes of
+    # any shape and one device.
     def export_slot(self, slot: int) -> Dict:
         """Deep-copy one slot's KV / recurrent state + write offset (and
         the shared block's per-depth caches of a hybrid stack).  The tensors
         are clones: the engine's cache is written in place, and the payload
         must not change when the engine steps on.  On a mesh every rank
-        takes the slot from the rank whose rows hold it."""
+        takes the slot from the rank whose rows hold it, whole."""
         c = self.cache
         rows = c["index"].shape[0]
         row = slot % rows              # on a mesh, every rank's row at the slot's place
@@ -310,13 +316,14 @@ class ServeEngine:
             state["shared"] = tree_map(lambda x: take(x[:, row]), c["shared"])
         if "tail_shared" in c:
             state["tail_shared"] = tree_map(lambda x: take(x[row]), c["tail_shared"])
-        return state
+        return self._over_model(state, whole=True)
 
     def import_slot(self, slot: int, state: Dict) -> None:
         """Install an `export_slot` payload into ``slot`` (overwrites it);
-        on a mesh, the rank whose rows hold the slot does."""
+        on a mesh, the ranks whose rows hold the slot do, each its part."""
         c, row = self.cache, self._row(slot)
         if row is not None:
+            state = self._over_model(state, whole=False)
             c["index"][row] = state["index"].to(self.device)
             tree_map(lambda x, v: x[:, row].copy_(v), c["blocks"], state["blocks"])
             tree_map(lambda x, v: x[row].copy_(v), c["tail"], state["tail"])
@@ -325,3 +332,60 @@ class ServeEngine:
             if "tail_shared" in c:
                 tree_map(lambda x, v: x[row].copy_(v), c["tail_shared"], state["tail_shared"])
         self.offsets[slot] = state["offset"]
+
+    def _over_model(self, state: Dict, whole: bool) -> Dict:
+        """A slot's payload with each leaf that the "model" axis cuts
+        (`models.transformer.block_cache_spans`) gathered whole from the
+        ranks' parts (``whole``; collective over the axis), or cut to this
+        rank's part of the whole.  As it is off a mesh, or on one rank."""
+        if self.mesh is None:
+            return state
+        with self._sharding():
+            n, r, group = tp_size(), tp_rank(), tp_group()
+        if n == 1:
+            return state
+
+        def block(cache, kind):
+            specs = [block_cache_spans(self.cfg, kind, q, n) for q in range(n)]
+
+            def walk(t, path):
+                if isinstance(t, dict):
+                    return {k: walk(v, path + (k,)) for k, v in t.items()}
+                mine = _spec(specs[r], path)
+                if mine is None:
+                    return t
+                dim, size, spans = mine
+                dim %= t.ndim
+                if not whole:
+                    return torch.cat([t.narrow(dim, lo, hi - lo) for lo, hi in spans], dim)
+                parts = [torch.empty_like(t) for _ in range(n)]
+                dist.all_gather(parts, t.contiguous(), group=group)
+                out = t.new_zeros(t.shape[:dim] + (size,) + t.shape[dim + 1:])
+                for spec, part in zip(specs, parts):
+                    at = 0
+                    for lo, hi in _spec(spec, path)[2]:
+                        out.narrow(dim, lo, hi - lo).copy_(part.narrow(dim, at, hi - lo))
+                        at += hi - lo
+                return out
+
+            return walk(cache, ()) if specs[r] else cache
+
+        layout = stack_layout(self.cfg)
+        out = dict(state)
+        out["blocks"] = {f"pos{j}": block(state["blocks"][f"pos{j}"], kind)
+                         for j, kind in enumerate(layout.period_kinds)}
+        out["tail"] = [block(t, kind) for t, kind in zip(state["tail"], layout.tail)]
+        if "shared" in state:
+            out["shared"] = block(state["shared"], BLOCK_ATTN)
+        if "tail_shared" in state:
+            out["tail_shared"] = [block(t, BLOCK_ATTN) for t in state["tail_shared"]]
+        return out
+
+
+def _spec(tree, path):
+    """The entry of ``tree`` at ``path``, or None."""
+    for k in path:
+        if not isinstance(tree, dict) or k not in tree:
+            return None
+        tree = tree[k]
+    return tree

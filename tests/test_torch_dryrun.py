@@ -139,21 +139,24 @@ def _expert_flops(cfg, mesh_shape):
 
 def test_the_model_ranks_split_the_work():
     """Each rank along "model" computes its own heads, FFN columns and vocab
-    slice (reduced to 2 layers, qwen1.5-0.5b's 151936 ids split 8 ways): a
-    rank of (32, 8) traces at most 0.14 of a (32, 1) rank's FLOPs.  A dbrx
-    cut's expert products on (32, 8): each rank multiplies its data rank's
-    share of the whole batch's (E, cap) buffer for its 2 of the 16 experts,
-    at most twice the whole buffer's products over 256 ranks (on meta, with
-    no router counts, a part's share is even)."""
-    cfg = dryrun.cut_depth(get_config("qwen1.5-0.5b"), 2)
-    flops = {}
-    for mesh_shape in ((32, 8), (32, 1)):
-        mesh = fake_mesh(mesh_shape, ("data", "model"))
-        try:
-            flops[mesh_shape] = dryrun.trace(cfg, TRAIN_4K, mesh, CellPlan())[0]["flops"]
-        finally:
-            close_fake_group()
-    assert flops[(32, 8)] <= 0.14 * flops[(32, 1)]
+    slice (reduced to 2 layers, qwen1.5-0.5b's 151936 ids split 8 ways), and
+    its heads of the Mamba2 mixers (zamba2-7b cut to one period: 6 Mamba2
+    layers of 112 heads and the shared attention block): a rank of (32, 8)
+    traces at most 0.14 of a (32, 1) rank's FLOPs.  A dbrx cut's expert
+    products on (32, 8): each rank multiplies its data rank's share of the
+    whole batch's (E, cap) buffer for its 2 of the 16 experts, at most twice
+    the whole buffer's products over 256 ranks (on meta, with no router
+    counts, a part's share is even)."""
+    for cfg in (dryrun.cut_depth(get_config("qwen1.5-0.5b"), 2),
+                dryrun.cut_depth(get_config("zamba2-7b"), 6)):
+        flops = {}
+        for mesh_shape in ((32, 8), (32, 1)):
+            mesh = fake_mesh(mesh_shape, ("data", "model"))
+            try:
+                flops[mesh_shape] = dryrun.trace(cfg, TRAIN_4K, mesh, CellPlan())[0]["flops"]
+            finally:
+                close_fake_group()
+        assert flops[(32, 8)] <= 0.14 * flops[(32, 1)], cfg.name
 
     cfg = dryrun.cut_depth(get_config("dbrx-132b"), 1)
     got, calls = _expert_flops(cfg, (32, 8))

@@ -195,8 +195,8 @@ def test_seamless_serves_on_a_mesh_from_its_cross_cache(engine_ranks):
 def test_a_slot_moved_between_data_ranks_continues_bit_for_bit(engine_ranks):
     """A sampled request exported mid-decode from slot 0 (data rank 0) and
     imported into slot 3 (data rank 1) of another engine on the mesh: its
-    tokens and its slot's final state (each rank's kv heads) equal a run
-    that never moved."""
+    tokens and its slot's final state (the whole payload: every rank's kv
+    heads gathered) equal a run that never moved."""
     for r in engine_ranks:
         moved, kept, moved_bits, kept_bits, (offset, want_offset) = r["moved"]
         assert len(kept) == 10 and moved == kept and offset == want_offset

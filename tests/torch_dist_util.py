@@ -1737,3 +1737,318 @@ def check_tensor_parallel_full(results):
             "dbrx_bf16_2x2_rows": {name: dict(run, median_step_s=statistics.median(run["step_s"]))
                                    for name, run in results[0]["moe_rows"].items()},
             "bincount_reads_back": results[0].get("bincount_reads_back")}
+
+
+# ------------------------------------------- tensor parallel: the mixers --
+#: Reduced zamba2-7b (4 Mamba2 layers of 4 heads of 64 over d_inner 256,
+#: state 16, the shared attention block every 2 layers) and reduced
+#: xlstm-1.3b (an mLSTM block of 4 heads over d_inner 256 and an sLSTM
+#: block of 4 heads over 128, whose FFN of 170 splits over 2 ranks and
+#: stays whole over 4), vocab 64, trained and served on `TP_MESHES`.
+MIXER_ARCHS = ("zamba2-7b", "xlstm-1.3b")
+MIXER_SLOTS = 4
+MIXER_MAX_LEN = 32
+
+
+def mixer_prompts():
+    rng = np.random.default_rng(2)
+    return [rng.integers(1, 64, size=int(rng.integers(2, 7))).tolist() for _ in range(6)]
+
+
+def jax_tensor_parallel_mixers(workdir):
+    """The reference's side of `rank_tensor_parallel_mixers`: for each of
+    `MIXER_ARCHS` its initial AdamW state, `TP_STEPS` steps of its train
+    step on each mesh of `TP_MESHES` (as `jax_tensor_parallel`), the loss
+    and gradients of `batch_np` (0) at the initial parameters on each mesh,
+    and the greedy streams of its `ServeEngine` over `mixer_prompts`."""
+    import jax
+    from jax.sharding import Mesh
+
+    from repro.models import lm_loss
+    from repro.parallel.context import activation_sharding
+    from repro.parallel.sharding import default_strategy, param_specs, state_specs
+    from repro.serve import Request, ServeEngine
+    from repro.train import init_state, make_optimizer, make_train_step, state_shapes
+
+    mesh_of = lambda shape: Mesh(np.array(jax.devices()[:4]).reshape(shape), ("data", "model"))
+    out = {}
+    for arch in MIXER_ARCHS:
+        cfg, opt = tp_cut("jax", arch), make_optimizer("adamw", lr=1e-3)
+        step_fn = make_train_step(cfg, opt)
+        state0 = init_state(jax.random.PRNGKey(0), cfg, opt)
+        params = state0["params"]
+        runs = {}
+        for shape in TP_MESHES:
+            mesh = mesh_of(shape)
+            strat = default_strategy(mesh)
+            specs = state_specs(state_shapes(cfg, opt), mesh, strat)
+            sharded = jax.jit(step_fn, in_shardings=(specs, None), out_shardings=(specs, None))
+            state, log = jax.device_put(state0, specs), []
+            pspecs = param_specs(jax.eval_shape(lambda: params), mesh, strat)
+            grad_fn = jax.jit(jax.value_and_grad(lambda p, b: lm_loss(p, b, cfg)[0]),
+                              in_shardings=(pspecs, None))
+            with mesh, activation_sharding(mesh, strat):
+                for i in range(TP_STEPS):
+                    state, m = sharded(state, batch_np(i))
+                    log.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])})
+                loss, grads = grad_fn(jax.device_put(params, pspecs), batch_np(0))
+            runs[shape] = {"log": log, "params": {p: np.asarray(a) for p, a in
+                                                  jax_flat(state["params"]).items()},
+                           "loss": float(loss),
+                           "grads": {p: np.asarray(a) for p, a in jax_flat(grads).items()}}
+        engine = ServeEngine(cfg, params, batch_slots=MIXER_SLOTS, max_len=MIXER_MAX_LEN,
+                             eos_id=-1)
+        reqs = [Request(i, list(p), max_new_tokens=6) for i, p in enumerate(mixer_prompts())]
+        for r in reqs:
+            engine.submit(r)
+        engine.run_until_done(500)
+        out[arch] = {"state0": jax.tree.map(np.asarray, state0), "runs": runs,
+                     "streams": {r.req_id: list(r.output) for r in reqs}}
+    return out
+
+
+def _mixer_heads_seen():
+    """Wrap the scans and recurrences of the mixers so that the head count
+    of each call is kept: returns (the list of (mixer, heads) pairs, a
+    function that unwraps)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import ssm, xlstm
+
+    seen, undo = [], []
+
+    def wrap(module, name, mixer, heads_of):
+        inner = getattr(module, name)
+
+        def recorded(*args, **kw):
+            seen.append((mixer, heads_of(args)))
+            return inner(*args, **kw)
+
+        setattr(module, name, recorded)
+        undo.append(lambda: setattr(module, name, inner))
+
+    for module, name in ((ops, "ssm_scan"), (ssm, "ssd_chunked"), (ssm, "ssd_reference")):
+        wrap(module, name, "mamba2", lambda a: a[0].shape[2])
+    for name in ("mlstm_chunked", "mlstm_recurrence"):
+        wrap(xlstm, name, "mlstm", lambda a: a[0].shape[2])
+    wrap(xlstm, "_slstm_loop", "slstm", lambda a: a[0].shape[3])
+    return seen, lambda: [u() for u in undo]
+
+
+def rank_tensor_parallel_mixers(rank, world, workdir, device_type, ref_file=None,
+                                steps=TP_STEPS):
+    """Each case of `MIXER_ARCHS` trained `steps` AdamW steps by `Trainer`
+    on each mesh of `TP_MESHES` from the reference's initial state (the
+    port's seed 0 without ``ref_file``), on `batch_np`'s batches: the logs,
+    the final parameters, the local shapes of a mixer's leaves, the loss
+    and gradients at the initial parameters with the head count each
+    mixer's scan or recurrence ran at, and the shapes of the cache an
+    engine on the mesh holds; on rank 0 also the unsharded run.  Then the
+    engine on (2, 2) (`_mixer_engine`)."""
+    import torch
+
+    from repro_torch.convert import state_from_jax, tree_to_numpy
+    from repro_torch.parallel.comm import mesh_device
+    from repro_torch.parallel.sharding import (default_strategy, distribute_tree, param_specs,
+                                               state_specs)
+    from repro_torch.runtime.elastic import MeshPlan
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.train import Trainer, TrainerConfig, init_state, make_optimizer, state_shapes
+
+    ref = None
+    if ref_file is not None:
+        with open(ref_file, "rb") as f:
+            ref = pickle.load(f)
+    meshes = {shape: MeshPlan(shape, ("data", "model")).build(device_type=device_type)
+              for shape in TP_MESHES}
+    device = mesh_device(meshes[TP_MESHES[0]])
+    tcfg = TrainerConfig(steps=steps, log_every=10 ** 9)
+    out = {}
+    for arch in MIXER_ARCHS:
+        cfg, opt = tp_cut("torch", arch), make_optimizer("adamw", lr=1e-3)
+
+        def fresh():
+            if ref is not None:
+                return state_from_jax(ref[arch]["state0"], device)
+            return init_state(torch.Generator(device).manual_seed(0), cfg, opt, device=device)
+
+        for shape, mesh in meshes.items():
+            specs = state_specs(state_shapes(cfg, opt), mesh, default_strategy(mesh))
+            trainer = Trainer(cfg, tcfg, Batches(), mesh=mesh, optimizer=opt)
+            state = trainer.run(state=distribute_tree(fresh(), specs, mesh))
+            seen, undo = _mixer_heads_seen()
+            try:
+                grads = _loss_and_grads(cfg, fresh()["params"], mesh)
+            finally:
+                undo()
+            params = fresh()["params"]
+            engine = ServeEngine(
+                cfg, distribute_tree(params, param_specs(params, mesh, default_strategy(mesh)),
+                                     mesh),
+                batch_slots=MIXER_SLOTS, max_len=MIXER_MAX_LEN, device=device, mesh=mesh)
+            out[(arch, shape)] = {
+                "sharded": trainer.metrics_log, "params": bits(state["params"]),
+                "local": {p: tuple(t.to_local().shape) for p, t in
+                          _items(state["params"]["blocks"])},
+                "cache": {p: tuple(t.shape) for p, t in _items(engine.cache["blocks"])},
+                "seen": sorted(set(seen)), **grads}
+        if rank == 0:
+            plain = Trainer(cfg, tcfg, Batches(), optimizer=opt, device=device)
+            out[arch] = {"plain": plain.metrics_log, "plain_params": dict(
+                _items(tree_to_numpy(plain.run(state=fresh())["params"])))}
+        out[(arch, "engine")] = _mixer_engine(cfg, fresh()["params"], meshes[(2, 2)], device)
+    return out
+
+
+def _mixer_engine(cfg, params, mesh, device):
+    """``cfg`` served by `ServeEngine` on ``mesh`` and unsharded: the greedy
+    streams of `mixer_prompts`; the logits of one decode step of the mesh
+    engine and of an unsharded engine into which every slot of it was
+    imported; a sampled request exported mid-decode from slot 0 of a mesh
+    engine, imported into slot 1 of an unsharded engine (its payload
+    exported back, and the tokens it goes on to) and into slot 3 of
+    another mesh engine, beside the request never moved."""
+    import copy
+
+    import torch
+
+    from repro_torch.parallel.sharding import default_strategy, distribute_tree, param_specs
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    placed = distribute_tree(params, param_specs(params, mesh, default_strategy(mesh)), mesh)
+    engine = lambda p, **kw: ServeEngine(cfg, p, batch_slots=MIXER_SLOTS,
+                                         max_len=MIXER_MAX_LEN, eos_id=-1, device=device, **kw)
+    streams = {}
+    for name, eng in (("mesh", engine(placed, mesh=mesh)), ("whole", engine(params))):
+        reqs = [Request(i, list(p), max_new_tokens=6) for i, p in enumerate(mixer_prompts())]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_done(500)
+        streams[name] = {r.req_id: list(r.output) for r in reqs}
+        if name == "mesh":
+            mesh_eng = eng
+    # One decode step of the mesh engine's last state, and of an unsharded
+    # engine holding every slot of it (whole payloads).
+    whole_eng = engine(params)
+    for slot in range(MIXER_SLOTS):
+        whole_eng.import_slot(slot, mesh_eng.export_slot(slot))
+    tokens = torch.from_numpy(np.arange(1, MIXER_SLOTS + 1, dtype=np.int32)[:, None]).to(device)
+    _, got = mesh_eng._decode(placed, mesh_eng.cache, tokens)
+    _, want = whole_eng._decode(params, whole_eng.cache, tokens)
+    rows = mesh_eng.cache["index"].shape[0]
+
+    mk = lambda **kw: engine(placed, mesh=mesh, temperature=0.7, rng_seed=3, **kw)
+    ref_eng = mk()
+    ref_req = Request(5, prompt=[7, 8, 9], max_new_tokens=10)
+    ref_eng.submit(ref_req)
+    ref_eng.run_until_done(200)
+    src = mk()
+    mig = Request(5, prompt=[7, 8, 9], max_new_tokens=10)
+    src.submit(mig)
+    while len(mig.output) < 4:
+        src.step()
+    state = src.export_slot(0)
+    one = engine(params, temperature=0.7, rng_seed=3)
+    one.import_slot(1, state)
+    back = one.export_slot(1)
+    one.slots[1] = on_one = copy.deepcopy(mig)
+    one.run_until_done(200)
+    dst = mk()
+    dst.import_slot(3, state)
+    dst.slots[3] = mig
+    dst.run_until_done(200)
+    moved, kept, empty = dst.export_slot(3), ref_eng.export_slot(0), one.export_slot(0)
+    for payload in (state, back, moved, kept, empty):
+        payload.pop("offset")
+    return {"streams": streams, "rows": rows,
+            "logits": (to_np(got), to_np(want[mesh.get_local_rank(0) * rows:][:rows])),
+            "one_device": (bits(state), bits(back), on_one.output, ref_req.output),
+            "moved": (mig.output, ref_req.output, bits(moved), bits(kept)),
+            "whole_shapes": {p: v.shape for p, v in bits(state).items()},
+            "one_device_shapes": {p: v.shape for p, v in bits(empty).items()}}
+
+
+# The mixers' tensor-parallel check of tools/multi_gpu_check.py at full width.
+MIXER_FULL_LAYERS = {"zamba2-7b": 9, "xlstm-1.3b": 8}   # zamba2's cut; xlstm's period
+
+
+def rank_tensor_parallel_mixers_full(rank, world, workdir, device_type):
+    """On 4 cards: zamba2-7b at full width cut to 9 layers and xlstm-1.3b's
+    period of 8 blocks, fp32, trained `TP_STEPS` AdamW steps of
+    `TP_FULL_TOKENS` unsharded on rank 0 (one card, first, while the card
+    is empty) and on (1, 4) and (2, 2), from seed 0: each rank its Mamba2
+    and xLSTM heads; then the zamba2 cut in its config's types,
+    `TP_BF16_STEPS` steps of `TP_BF16_TOKENS` (``loss_chunk`` 1024)
+    unsharded on rank 0 and on (1, 4): each step's seconds and the card's
+    peak bytes."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import cut_depth
+    from repro_torch.parallel.comm import mesh_device
+    from repro_torch.parallel.sharding import default_strategy, distribute_tree, state_specs
+    from repro_torch.runtime.elastic import MeshPlan
+    from repro_torch.train import Trainer, TrainerConfig, init_state, make_optimizer
+
+    meshes = {shape: MeshPlan(shape, ("data", "model")).build(device_type=device_type)
+              for shape in TP_MESHES}
+    device = mesh_device(meshes[TP_MESHES[0]])
+    fp32 = lambda cfg: dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    out = {}
+
+    def train(cfg, opt, tcfg, data, mesh):
+        state0 = init_state(torch.Generator(device).manual_seed(0), cfg, opt, device=device)
+        if mesh is not None:
+            state0 = distribute_tree(state0, state_specs(state0, mesh, default_strategy(mesh)),
+                                     mesh)
+        _free(device)
+        trainer = Trainer(cfg, tcfg, data, mesh=mesh, optimizer=opt, device=device)
+        trainer.run(state=state0)
+        log = trainer.metrics_log
+        peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+        del trainer, state0
+        _free(device)
+        return log, peak
+
+    for arch, layers in MIXER_FULL_LAYERS.items():
+        cfg = fp32(cut_depth(get_config(arch), layers))
+        opt = make_optimizer("adamw", lr=1e-3)
+        data = TokenBatches(cfg.vocab_size, *TP_FULL_TOKENS)
+        tcfg = TrainerConfig(steps=TP_STEPS, log_every=10 ** 9)
+        if rank == 0:
+            out[arch] = train(cfg, opt, tcfg, data, None)[0]
+        for shape, mesh in meshes.items():
+            out[(arch, shape)] = train(cfg, opt, tcfg, data, mesh)[0]
+
+    cfg = cut_depth(get_config("zamba2-7b"), MIXER_FULL_LAYERS["zamba2-7b"])
+    opt = make_optimizer(cfg.optimizer, lr=1e-3)
+    data = TokenBatches(cfg.vocab_size, *TP_BF16_TOKENS)
+    tcfg = TrainerConfig(steps=TP_BF16_STEPS, log_every=10 ** 9, loss_chunk=1024)
+    runs = {"1x1": None, "1x4": meshes[(1, 4)]} if rank == 0 else {"1x4": meshes[(1, 4)]}
+    for name, mesh in runs.items():
+        log, peak = train(cfg, opt, tcfg, data, mesh)
+        out[("bf16", name)] = {"step_s": [r["dt_s"] for r in log],
+                               "loss": [r["loss"] for r in log], "peak_bytes": peak}
+    return out
+
+
+def check_tensor_parallel_mixers_full(results):
+    """`rank_tensor_parallel_mixers_full`'s runs: every rank's fp32 losses
+    (1e-5) and gradient norms (1e-4 relative) of both cuts on each mesh
+    follow the one-card run; the bf16 zamba2 cut's steps and peaks, a
+    record (the median of the steps after the first)."""
+    import statistics
+
+    for r in results:
+        for arch in MIXER_FULL_LAYERS:
+            for shape in TP_MESHES:
+                same_log(r[(arch, shape)], results[0][arch])
+    median = lambda xs: statistics.median(xs[1:])
+    return {**{f"{arch}_fp32": {"one_card": results[0][arch],
+                                **{f"{a}x{b}": results[0][(arch, (a, b))] for a, b in TP_MESHES}}
+               for arch in MIXER_FULL_LAYERS},
+            "zamba2_bf16": {name: dict(run, median_step_s=median(run["step_s"]))
+                            for name, run in (("1x4", results[0][("bf16", "1x4")]),
+                                              ("1x1", results[0][("bf16", "1x1")]))},
+            "zamba2_bf16_1x4_peaks": [r[("bf16", "1x4")]["peak_bytes"] for r in results]}

@@ -26,6 +26,15 @@ small sizes, and tensor-parallel training at full width:
               (``--device cpu``) it trains the tests' reduced qwen1.5-0.5b,
               granite, seamless and nemotron on the same meshes instead
 
+  tensor_parallel_mixers  zamba2-7b at full width cut to 9 layers and
+              xlstm-1.3b's period of 8 blocks, fp32, 2 AdamW steps of 2 x
+              1024 tokens on (1, 4) and (2, 2), each rank its Mamba2 and xLSTM
+              heads, against the same runs unsharded on one of the cards
+              (losses 1e-5, gradient norms 1e-4 relative); a record beside
+              them: the bf16 zamba2 cut, 4 steps of 2 x 4096 tokens on (1, 4)
+              and on one card, each step's seconds and the cards' peaks.  On
+              the CPU it trains the tests' reduced zamba2 and xlstm instead
+
   training    reduced granite-3-2b on a (2, 2) ("data", "model") mesh with
               each optimizer; a dbrx cut with the default strategy (the MoE
               layer over the whole batch, assignments dropping) and with the
@@ -74,6 +83,12 @@ CHECKS = {
         "cpu": ("rank_tensor_parallel", {}, lambda rs: [
             du.check_tensor_parallel(rs, arch, shape)
             for arch in du.TP_VOCAB for shape in du.TP_MESHES])},
+    "tensor_parallel_mixers": {
+        "cuda": ("rank_tensor_parallel_mixers_full", {"collective_timeout_s": 240},
+                 du.check_tensor_parallel_mixers_full),
+        "cpu": ("rank_tensor_parallel_mixers", {}, lambda rs: [
+            du.check_tensor_parallel(rs, arch, shape)
+            for arch in du.MIXER_ARCHS for shape in du.TP_MESHES])},
     "training": ("rank_training_cases", {"steps": 3}, lambda rs: (
         [du.check_optimizer([r["optimizers"] for r in rs], n) for n in du.OPTIMIZER_CASES],
         du.check_dbrx([r["dbrx"] for r in rs]),
