@@ -452,14 +452,17 @@ def phase_device(torch):
     return smi[0]
 
 
-# The tensor-core instances: each must hold HMMA instructions in its SASS.
-TENSOR_CORE_KERNELS = ("flash_fwd_bf16_kernel", "ssm_scan_bf16_kernel", "decode_bf16_tc_kernel")
+# The tensor-core instances, each with the instruction its SASS must hold:
+# HGMMA (wgmma, a warpgroup's product) or HMMA (mma.sync, a warp's).
+TENSOR_CORE_KERNELS = {"flash_fwd_wgmma_kernel": "hgmma", "ssm_scan_bf16_kernel": "hmma",
+                       "decode_bf16_tc_kernel": "hmma"}
 
 
 def phase_build(verbose):
     """Builds the library; prints each kernel instance's registers, spill
-    bytes (ptxas) and tensor-core instructions (HMMA in its SASS), and fails
-    if a tensor-core instance holds none.  Returns those resources."""
+    bytes (ptxas) and tensor-core instructions (HMMA and HGMMA in its SASS),
+    and fails if a tensor-core instance holds none of its kind.  Returns
+    those resources."""
     from repro_torch.kernels import _build
     built_now = not _build.library_path().exists()
     t0 = time.perf_counter()
@@ -471,10 +474,10 @@ def phase_build(verbose):
          kernels=resources)
     if verbose and built_now:
         print((_build.build_dir() / "build.log").read_text(), flush=True)
-    for name in TENSOR_CORE_KERNELS:
+    for name, opcode in TENSOR_CORE_KERNELS.items():
         found = {k: r for k, r in resources.items() if k.split("<")[0] == name}
-        require(found and all(r.get("hmma", 0) > 0 for r in found.values()),
-                f"build: {name} holds no tensor-core instruction: {found}")
+        require(found and all(r.get(opcode, 0) > 0 for r in found.values()),
+                f"build: {name} holds no {opcode.upper()} instruction: {found}")
     return resources
 
 
@@ -587,14 +590,21 @@ FLASH_CASES = [
     ("ragged", 1, 1000, 1000, 8, 2, 64), ("sq<sk", 2, 77, 300, 4, 2, 64),
     ("ragged-mha-d112", 1, 1000, 1000, 8, 8, 112), ("sq<sk-d112", 2, 77, 300, 8, 2, 112),
 ]
-# bf16 alone: the tensor-core instance's edges (d_head 32, 112 and 128 with
+# bf16 alone: the tensor-core instances' edges (d_head 32, 112 and 128 with
 # Sq != Sk both ways, MQA, GQA 4:1 over 1000 rows, and d_head 96, which runs
-# the 128 instance with its last 32 columns zero).
+# the 128 instance with its last 32 columns zero); the key tile's edges (Sk
+# 127, 128 and 129: a tile one key short, exact, one key over; Sk 63 and
+# 65, half a tile either side) and query blocks of 128 that end ragged (Sq
+# 63, 65, 127, 129, 200, 300), d_head 112 with Sq < Sk.
 FLASH_BF16_CASES = [
     ("sq<sk-d32", 2, 77, 300, 4, 2, 32), ("sq>sk-d112", 1, 1000, 333, 8, 4, 112),
     ("sq>sk-d128", 2, 300, 77, 4, 2, 128), ("sq<sk-d128", 1, 100, 1000, 4, 4, 128),
     ("mqa", 2, 1000, 1000, 8, 1, 64), ("gqa4-1000", 2, 1000, 1000, 16, 4, 64),
     ("padded-d96", 1, 333, 333, 4, 2, 96),
+    ("sk127", 2, 127, 127, 4, 2, 64), ("sk128-d128", 1, 128, 128, 8, 2, 128),
+    ("sk129", 2, 129, 129, 8, 8, 64), ("sq200>sk127-d128", 1, 200, 127, 4, 1, 128),
+    ("sq300<sk1000-d112", 1, 300, 1000, 8, 2, 112), ("sk63-d128", 1, 63, 63, 4, 2, 128),
+    ("sk65-d112", 2, 65, 65, 4, 4, 112),
 ]
 FLASH_TRAIN = ("granite-3-2b train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 8, 64)
 FLASH_ZAMBA = ("zamba2-7b train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 32, 112)
@@ -627,9 +637,10 @@ def flash_errors(torch, got, want, dt):
 
 def check_flash(torch, checks, case, causal, dt, control=False):
     """The kernel against its plain version.  With ``control``, also the
-    plain version with the last key tile (the kernel's 4096 / D keys)
-    dropped, which the same check must refuse."""
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    plain version with the last key tile (the bf16 kernel's `KEY_TILE`
+    keys) dropped, which the same check must refuse."""
+    from repro_torch.kernels.flash_attention import (KEY_TILE, flash_attention,
+                                                     flash_attention_plain)
     name, B, Sq, Sk, Hq, Hkv, D = case
     dtype = getattr(torch, dt)
     q = rand(torch, (B, Sq, Hq, D), dtype, 21, "cuda")
@@ -648,7 +659,7 @@ def check_flash(torch, checks, case, causal, dt, control=False):
     require(ratio <= 1.0 and lratio <= 1.0,
             f"flash_attention {name} causal={causal} {dt}: error {err} / lse {lerr}")
     if control:
-        tile = 4096 // D
+        tile = KEY_TILE
         wrong = flash_attention_plain(q, k[:, :Sk - tile], v[:, :Sk - tile], causal)
         _, c_ratio, _, c_lratio = flash_errors(torch, wrong, want, dt)
         row["control_last_key_tile_dropped"] = dict(keys=tile, err_over_tol=c_ratio,
@@ -1808,8 +1819,8 @@ def phase_timing(torch, device, launches, resources):
     seamless's non-causal encoder and cross-attention), beside their
     plain versions, one library call each where there is one, and the
     card's bound.  ``launches`` holds each path's counts by phase name;
-    ``resources`` the build's registers, spills and HMMA counts by kernel
-    instance, which the tensor-core kernels' rows name."""
+    ``resources`` the build's registers, spills and HMMA / HGMMA counts by
+    kernel instance, which the tensor-core kernels' rows name."""
     import torch.nn.functional as F
     from repro_torch.kernels.rmsnorm import rms_norm, rms_norm_plain, work
 
@@ -1883,20 +1894,19 @@ def phase_timing(torch, device, launches, resources):
     torch.cuda.empty_cache()
 
     counts = by_path("flash_attention")
+    with SmiSampler() as smi:
+        times = lambda case, causal=True: flash_times(torch, timer, device, case, resources,
+                                                      smi, causal)
+        rows = dict(times(FLASH_TRAIN), zamba2_d112=times(FLASH_ZAMBA),
+                    dbrx_d128=times(FLASH_DBRX), qwen2vl_g6_d128=times(FLASH_QWEN2VL),
+                    seamless_cross=times(FLASH_SEAMLESS_CROSS, False),
+                    seamless_encoder=times(FLASH_SEAMLESS_ENCODER, False))
     out.append(dict(name="flash_attention", route="cuda",
                     source="src/repro_torch/csrc/flash_attention.cu",
                     replaces="src/repro/kernels/flash_attention.py:68",
                     launches=sum(counts.values()), launches_by_path=counts,
                     library="torch.nn.functional.scaled_dot_product_attention"
-                            "(is_causal, enable_gqa)",
-                    **flash_times(torch, timer, device, FLASH_TRAIN, resources),
-                    zamba2_d112=flash_times(torch, timer, device, FLASH_ZAMBA, resources),
-                    dbrx_d128=flash_times(torch, timer, device, FLASH_DBRX, resources),
-                    qwen2vl_g6_d128=flash_times(torch, timer, device, FLASH_QWEN2VL, resources),
-                    seamless_cross=flash_times(torch, timer, device, FLASH_SEAMLESS_CROSS,
-                                               resources, causal=False),
-                    seamless_encoder=flash_times(torch, timer, device, FLASH_SEAMLESS_ENCODER,
-                                                 resources, causal=False)))
+                            "(is_causal, enable_gqa)", **rows))
     torch.cuda.empty_cache()
 
     counts = by_path("ssm_scan")
@@ -2104,15 +2114,23 @@ def decode_times(torch, timer, device, shape, resources, smi):
 
 
 def instance(resources, name):
-    """The build's registers, spill bytes and HMMA count of one kernel
-    instance, under its name (empty where the build phase did not run)."""
+    """The build's registers, spill bytes and HMMA / HGMMA counts of one
+    kernel instance, under its name (empty where the build phase did not
+    run)."""
     return dict(instance=name, **resources.get(name, {}))
 
 
-def flash_times(torch, timer, device, case, resources, causal=True):
-    """flash_attention at a path's shape, bf16 (causal: Sq = Sk); SDPA beside."""
+def flash_times(torch, timer, device, case, resources, smi, causal=True):
+    """flash_attention at a path's shape, bf16 (causal: Sq = Sk); SDPA
+    beside.  Kernel and SDPA are timed `TIMING_REPEATS` times in turn
+    (median and spread of the device ms and of the host loop's), with the
+    card's clock, power and temperature during each reading (``smi``); the
+    plain version once.  ``library_ratio`` is kernel / SDPA, ``bound_share``
+    bound / kernel; the build's registers, spills and HGMMA count of the
+    instance that runs at this d_head."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain, work
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_plain,
+                                                     kernel_instance, work)
     dtype, dt = torch.bfloat16, "bfloat16"
     _, B, Sq, Sk, Hq, Hkv, D = case
     q = rand(torch, (B, Sq, Hq, D), dtype, 41, device)
@@ -2124,22 +2142,26 @@ def flash_times(torch, timer, device, case, resources, causal=True):
             f"timing: flash_attention {case[0]} error {err} beyond tolerance")
     sdpa_gqa = "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or "")
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    ms, call = timer(lambda: flash_attention(q, k, v, causal), iters=20)
     plain, plain_call = timer(lambda: flash_attention_plain(q, k, v, causal), iters=3)
-    lib, lib_call = (timer(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal, enable_gqa=True), iters=20) if sdpa_gqa else (None, None))
-    ms2, call2 = timer(lambda: flash_attention(q, k, v, causal), iters=20)
+    fns = {"kernel": (lambda: flash_attention(q, k, v, causal), 20)}
+    if sdpa_gqa:
+        fns["library"] = (lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True), 20)
+    t = repeated(timer, fns, smi)
+    lib = t.get("library", {})
+    ms = t["kernel"]["ms"]
     flops, nbytes = work(q, k, v, causal)
     b_ms, b_by = bound(nbytes, flops, dt)
-    best = min(ms, ms2)
-    name = f"flash_fwd_bf16_kernel<{D}, false>"     # the training shapes' D are exact instances
-    return dict(max_abs_err=err, tol=FLASH_TOL[dt], ms=best, plain_ms=plain,
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib, call_ms=min(call, call2),
-                plain_call_ms=plain_call, library_call_ms=lib_call, bytes=nbytes, flops=flops,
-                achieved_tflops=flops / (best * 1e-3) / 1e12,
-                achieved_gb_per_s=nbytes / (best * 1e-3) / 1e9,
-                shape=[B, Sq, Sk, Hq, Hkv, D], dtype=dt, causal=causal,
-                **instance(resources, name))
+    return dict(max_abs_err=err, tol=FLASH_TOL[dt], ms=ms, ms_spread=t["kernel"]["ms_spread"],
+                plain_ms=plain, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
+                library_ms=lib.get("ms"), library_ms_spread=lib.get("ms_spread"),
+                library_ratio=ms / lib["ms"] if lib else None,
+                call_ms=t["kernel"]["call_ms"], call_ms_spread=t["kernel"]["call_ms_spread"],
+                plain_call_ms=plain_call, library_call_ms=lib.get("call_ms"), bytes=nbytes,
+                flops=flops, achieved_tflops=flops / (ms * 1e-3) / 1e12,
+                achieved_gb_per_s=nbytes / (ms * 1e-3) / 1e9,
+                shape=[B, Sq, Sk, Hq, Hkv, D], dtype=dt, causal=causal, readings=t,
+                **instance(resources, kernel_instance(D)))
 
 
 def ssm_times(torch, timer, device, case, resources):

@@ -22,10 +22,10 @@ __device__ __forceinline__ void store16(void* p, uint4 v) {
 }
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  // round to nearest even, as a cast to bf16 does
-  uint32_t l = __bfloat16_as_ushort(__float2bfloat16_rn(lo));
-  uint32_t h = __bfloat16_as_ushort(__float2bfloat16_rn(hi));
-  return l | (h << 16);
+  // round to nearest even, as a cast to bf16 does, in one instruction
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
 }
 
 // Vec16<T>: N values of T fill one 16-byte vector; unpack widens them to
@@ -72,11 +72,12 @@ struct Vec16<__nv_bfloat16> {
   }
 };
 
-// The attention kernels' d_head: 32, 64 and 128 run exact instances (and
-// 112 in bf16 flash attention); any other multiple of the 16-byte vector up
-// to 128 runs the instance padded to 128 (rows read at their own stride D,
-// lanes past D masked).  The wrappers hold the same rule (kernels/_build.py,
-// check_head_dim).
+// The attention kernels' d_head: 32, 64 and 128 run exact instances; any
+// other multiple of the 16-byte vector up to 128 runs the instance padded
+// to 128 (rows read at their own stride D, lanes past D masked).  bf16 flash
+// attention instead runs its 64 instance up to 64 and its 128 instance
+// above, through TMA boxes whose columns past D read as zeros.  The
+// wrappers hold the same rule (kernels/_build.py, check_head_dim).
 constexpr int kMaxHeadDim = 128;
 
 template <typename T>

@@ -78,7 +78,7 @@
 // Each of the 4 warps of a block takes its own 16 keys of every tile and
 // keeps its own (m, l, O^T); the warps merge in shared memory in warp
 // order at the end.  Scores are prescaled by log2(e) / sqrt(D) and
-// exponentiated with exp2, as in `flash_fwd_bf16_kernel`, so its partial
+// exponentiated with exp2, as in `flash_fwd_wgmma_kernel`, so its partial
 // m are in log2 units.  Rows of the ring are padded by 16 bytes (D + 8
 // bf16), so ldmatrix and ldmatrix.trans hit no bank twice.
 //

@@ -136,8 +136,9 @@ def parse_ptxas(text: str) -> Dict[str, Dict[str, int]]:
 
 
 def count_sass(text: str, opcode: str) -> Dict[str, int]:
-    """Instructions whose opcode starts with ``opcode`` (``HMMA``: the
-    tensor cores' mma), by function, in ``cuobjdump -sass`` output."""
+    """Instructions whose opcode is ``opcode`` (with or without a suffix
+    after a dot: ``HMMA.16816.F32.BF16``), by function, in ``cuobjdump
+    -sass`` output."""
     out: Dict[str, int] = {}
     fn = None
     op = re.compile(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?" + re.escape(opcode) + r"\b")
@@ -166,11 +167,17 @@ def demangle(names: List[str]) -> Dict[str, str]:
     return short
 
 
+#: The tensor cores' instructions in SASS: ``HMMA`` is a warp's mma.sync,
+#: ``HGMMA`` a warpgroup's wgmma.
+TENSOR_CORE_OPCODES = ("HMMA", "HGMMA")
+
+
 def kernel_resources() -> Dict[str, Dict[str, int]]:
     """Each kernel instance of the built library: registers, spill bytes
     (``build.log``, written by `build`) and tensor-core instructions
-    (``HMMA`` in ``cuobjdump -sass``), by demangled name.  Call after
-    `library()`; the ptxas lines are there only if this process built it."""
+    (``hmma`` and ``hgmma``, counted in ``cuobjdump -sass``), by demangled
+    name.  Call after `library()`; the ptxas lines are there only if this
+    process built it."""
     log = build_dir() / "build.log"
     res = parse_ptxas(log.read_text()) if log.exists() else {}
     nvcc = find_nvcc()
@@ -179,8 +186,9 @@ def kernel_resources() -> Dict[str, Dict[str, int]]:
         raise RuntimeError("cuobjdump not found beside nvcc")
     sass = subprocess.run([str(cuobjdump), "-sass", str(library_path())], capture_output=True,
                           text=True, check=True).stdout
-    for name, n in count_sass(sass, "HMMA").items():
-        res.setdefault(name, {"registers": None, "spill_bytes": None})["hmma"] = n
+    for opcode in TENSOR_CORE_OPCODES:
+        for name, n in count_sass(sass, opcode).items():
+            res.setdefault(name, {"registers": None, "spill_bytes": None})[opcode.lower()] = n
     names = demangle(sorted(res))
     return {names[n]: res[n] for n in sorted(res)}
 
@@ -235,9 +243,10 @@ MAX_HEAD_DIM = 128
 def check_head_dim(what: str, d: int, dtype) -> None:
     """Raise unless the attention kernels take d_head ``d`` for ``dtype``:
     any multiple of a 16-byte vector's values (8 bf16, 4 fp32) up to 128.
-    32, 64 and 128 run exact instances, and in bf16 flash attention 112
-    too; the others run one padded to 128 (``csrc/common.cuh``,
-    ``padded_head_dim``)."""
+    32, 64 and 128 run exact instances, the others one padded to 128
+    (``csrc/common.cuh``, ``padded_head_dim``); bf16 flash attention runs
+    its 64 instance up to 64 and its 128 instance above, the columns past
+    ``d`` zero."""
     vec = 16 // dtype.itemsize
     if d <= 0 or d % vec or d > MAX_HEAD_DIM:
         raise ValueError(f"{what}: d_head {d} not supported (takes multiples of {vec} "

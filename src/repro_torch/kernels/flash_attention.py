@@ -9,13 +9,17 @@ operations on an H100: ``4 * B * Hq * D * S**2 / 2`` = 1.37e11, 0.139 ms at
 the bf16 dense peak, against about 85 MB moved (0.025 ms).  The kernel
 reads q, k and v in their native ``(B, S, H, D)`` layout, masks ragged
 edges instead of asking the lengths to divide the blocks, and skips key
-tiles wholly above the causal diagonal.  bf16 runs FlashAttention-2 on the
-tensor cores (``mma.sync``, bf16 K and V tiles in a ``cp.async`` ring, P
-split in registers into bf16 hi + lo for P·V); d_head 32, 64, 112 (zamba2-7b's)
-and 128 are exact instances, any other multiple of 8 up to 128 runs the
-128 instance with its last columns zero.  fp32 keeps both products on the
-fp32 cores (d_head 32, 64 and 128 exact, other multiples of 4 padded to
-128), for the 2e-5 checks.  See the source's note.
+tiles wholly above the causal diagonal.  bf16 runs on Hopper's warpgroup
+products: a block of 128 query rows has one warpgroup that streams K and
+V tiles of `KEY_TILE` keys by TMA into a ring in shared memory and two
+that compute (``wgmma``, Q Kᵀ from shared memory, P·V with P in
+registers, split into bf16 hi + lo); d_head up to 64 runs the 64
+instance, up to 128 the 128 instance, the columns past d_head zero.
+Being bound by operations, it does 1.5 times `work()`'s products (the
+split doubles P·V), so it can reach at most 2/3 of the bound.  fp32
+keeps both products on the fp32 cores (d_head 32, 64 and 128 exact,
+other multiples of 4 padded to 128), for the 2e-5 checks.  See the
+source's note.
 
 Plain version: `flash_attention_plain`, which is `gqa_reference` plus the
 log-sum-exp of the same masked scores.
@@ -47,6 +51,16 @@ def flash_attention_plain(q, k, v, causal: bool = True) -> Tuple[torch.Tensor, t
         mask = torch.arange(Sq, device=q.device)[:, None] >= torch.arange(Sk, device=q.device)
         scores = scores.masked_fill(~mask, NEG_INF)
     return out, torch.logsumexp(scores, dim=-1)
+
+
+#: Keys a tile of the bf16 kernel (both instances).
+KEY_TILE = 128
+
+
+def kernel_instance(d: int) -> str:
+    """The bf16 kernel instance that a launch at d_head ``d`` runs, by the
+    name the build's resources give it."""
+    return f"flash_fwd_wgmma_kernel<{64 if d <= 64 else 128}>"
 
 
 def work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True

@@ -1,8 +1,9 @@
 """What the build reports about each kernel instance, read from the
 compiler's text: registers and spills from ptxas's ``-v`` lines, and
 tensor-core instructions from ``cuobjdump -sass``.  chip_smoke.py's build
-line prints them and fails when a tensor-core instance holds no HMMA; here
-the parsers run on fixed samples of both tools' output."""
+line prints them and fails when a tensor-core instance holds none of its
+kind (HMMA for mma.sync, HGMMA for wgmma); here the parsers run on fixed
+samples of both tools' output."""
 
 import shutil
 
@@ -11,6 +12,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attention import kernel_instance
+from repro_torch.kernels.flash_attention import kernel_instance as flash_instance
 
 FLASH_BF16 = ("_ZN51_GLOBAL__N__04cf38d3_18_flash_attention_cu_c45a2b1821flash_fwd_bf16_kernel"
               "ILi64ELb0EEEvPK13__nv_bfloat16S3_S3_PS1_Pfiiiiifi")
@@ -95,3 +97,30 @@ ptxas info    : Used 96 registers, used 1 barriers
     if shutil.which("c++filt") is None and shutil.which("cu++filt") is None:
         return
     assert _build.demangle([DECODE_TC]) == {DECODE_TC: kernel_instance(torch.bfloat16, 6, 128)}
+
+
+FLASH_WGMMA = ("_ZN51_GLOBAL__N__04cf38d3_18_flash_attention_cu_c45a2b1822flash_fwd_wgmma_kernel"
+               "ILi64EEEv14CUtensorMap_stS1_S1_P13__nv_bfloat16Pfiiiiifi")
+
+
+def test_the_wgmma_flash_instance_counts_hgmma_and_reads_under_the_wrappers_name():
+    """wgmma shows in SASS as HGMMA (not HMMA): the build line counts both
+    opcodes, each by its own name, and the bf16 flash instance reads under
+    the name `kernel_instance` gives chip_smoke.py's timing rows."""
+    sass = f"""\t\tFunction : {FLASH_WGMMA}
+        /*0000*/                   UTMALDG.4D [UR8], [UR4] ;
+        /*0010*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+        /*0020*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], R24, gsb0 ;
+        /*0030*/                   HGMMA.64x64x16.F32.BF16 R88, R152, gdesc[UR12], R88 ;
+        /*0040*/                   WARPGROUP.DEPBAR.LE gsb0, 0x0 ;
+\t\tFunction : {DECODE_TC}
+        /*0000*/                   HMMA.16816.F32.BF16 R8, R12, R4, R8 ;
+"""
+    assert _build.count_sass(sass, "HGMMA") == {FLASH_WGMMA: 3, DECODE_TC: 0}
+    assert _build.count_sass(sass, "HMMA") == {FLASH_WGMMA: 0, DECODE_TC: 1}
+    assert _build.TENSOR_CORE_OPCODES == ("HMMA", "HGMMA")
+    assert {flash_instance(d) for d in (8, 32, 64)} == {"flash_fwd_wgmma_kernel<64>"}
+    assert {flash_instance(d) for d in (72, 96, 112, 128)} == {"flash_fwd_wgmma_kernel<128>"}
+    if shutil.which("c++filt") is None and shutil.which("cu++filt") is None:
+        return
+    assert _build.demangle([FLASH_WGMMA]) == {FLASH_WGMMA: flash_instance(64)}

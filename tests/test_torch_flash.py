@@ -23,7 +23,7 @@ from repro_torch.configs import get_config as tget_config
 from repro_torch.convert import params_from_jax, tree_to_numpy
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+from repro_torch.kernels.flash_attention import KEY_TILE, flash_attention, flash_attention_plain
 from repro_torch.models import attention as tattn
 from repro_torch.models.config import reduced as treduced
 
@@ -224,13 +224,14 @@ def _bf16(t):
     return t.to(torch.bfloat16).float()
 
 
-def _tensor_core_flash(q, k, v, causal, split=True, l_from_rounded=False, tile=64):
+def _tensor_core_flash(q, k, v, causal, split=True, l_from_rounded=False, tile=KEY_TILE):
     """The bf16 `flash_attention` kernel's arithmetic (csrc/flash_attention
-    .cu, `flash_fwd_bf16_kernel`) in PyTorch on the CPU: key tiles of 64,
-    scores in log2 units, the online softmax in fp32, P split into bf16 hi
-    + lo for P·V (rounded once to bf16 without ``split``) and l summed from
-    the fp32 P (from the rounded P with ``l_from_rounded``).  Returns (out
-    fp32 before its rounding to q's type, lse fp32 (B, Hkv, G, Sq))."""
+    .cu, `flash_fwd_wgmma_kernel`) in PyTorch on the CPU: key tiles of
+    ``tile`` (the kernel's `KEY_TILE`), scores in log2 units, the online
+    softmax in fp32, P split into bf16 hi + lo for P·V (rounded once to bf16
+    without ``split``) and l summed from the fp32 P (from the rounded P with
+    ``l_from_rounded``).  Returns (out fp32 before its rounding to q's type,
+    lse fp32 (B, Hkv, G, Sq))."""
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G, log2e = Hq // Hkv, 1.4426950408889634
@@ -257,18 +258,21 @@ def _tensor_core_flash(q, k, v, causal, split=True, l_from_rounded=False, tile=6
     return (acc / L).permute(0, 2, 1, 3), lse.reshape(B, Hkv, G, Sq)
 
 
+@pytest.mark.parametrize("tile", [KEY_TILE // 2, KEY_TILE])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,D", [
     (1, 128, 128, 4, 4, 64), (2, 256, 256, 8, 2, 64), (2, 256, 256, 6, 3, 32),
     (1, 512, 512, 4, 1, 128), (2, 77, 300, 4, 2, 32), (1, 200, 70, 4, 2, 112),
     (2, 130, 130, 8, 1, 64)])
-def test_tensor_core_rounding_meets_the_bf16_allowance(B, Sq, Sk, Hq, Hkv, D, causal):
-    """P rounded to bf16 before P·V, emulated, against the reference's
-    `_flash_fwd_math` (one chunk each side, so the ragged lengths divide)
-    on the same bf16 inputs, at chip_smoke.py's bf16 allowances."""
+def test_tensor_core_rounding_meets_the_bf16_allowance(B, Sq, Sk, Hq, Hkv, D, causal, tile):
+    """P rounded to bf16 before P·V, emulated at the kernel's key tile (and
+    at half of it, which rescales the running sums twice as often),
+    against the reference's `_flash_fwd_math` (one chunk each side, so the
+    ragged lengths divide) on the same bf16 inputs, at chip_smoke.py's bf16
+    allowances."""
     (jq, tq), (jk, tk), (jv, tv) = _qkv(20, B, Sq, Sk, Hq, Hkv, D, bf16=True)
     want_out, want_lse = jattn._flash_fwd_math(jq, jk, jv, causal, 0, None, Sq, Sk)
-    out, lse = _tensor_core_flash(tq, tk, tv, causal)
+    out, lse = _tensor_core_flash(tq, tk, tv, causal, tile=tile)
     assert lse.shape == (B, Hkv, Hq // Hkv, Sq)
     np.testing.assert_allclose(_np(out.to(torch.bfloat16)), _np(want_out), **BF16_OUT_TOL)
     np.testing.assert_allclose(_np(lse), _np(want_lse), **LSE_TOL)

@@ -134,7 +134,7 @@ def test_no_source_calls_a_library_kernel_or_compiler():
 def test_build_plan_needs_no_nvcc(tmp_path, monkeypatch):
     names = [p.name for p in _build.sources()]
     assert names == ["decode_attention.cu", "flash_attention.cu", "rmsnorm.cu", "ssm_scan.cu"]
-    assert [p.name for p in _build.headers()] == ["common.cuh", "mma.cuh"]
+    assert [p.name for p in _build.headers()] == ["common.cuh", "hopper.cuh", "mma.cuh"]
     cmd = _build.compile_command(_build.sources()[0], tmp_path / "x.o")
     assert cmd[0] == "nvcc" and "arch=compute_90a,code=sm_90a" in cmd and "-c" in cmd
     link = _build.link_command([tmp_path / "x.o"], tmp_path / "lib.so")
