@@ -115,6 +115,7 @@ def build() -> Path:
 
 
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_SERIALIZED = re.compile(r"wgmma\.mma_async instructions are serialized.* in the function '(\S+)'")
 _SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
 _SASS_FUNCTION = re.compile(r"^\s*Function : (\S+)")
@@ -122,11 +123,16 @@ _SASS_FUNCTION = re.compile(r"^\s*Function : (\S+)")
 
 def parse_ptxas(text: str) -> Dict[str, Dict[str, int]]:
     """Registers a thread and spill bytes (stores + loads) of each kernel,
-    by mangled name, from the ``-Xptxas -v`` lines of ``build.log``."""
+    by mangled name, from the ``-Xptxas -v`` lines of ``build.log``; and
+    ``wgmma_serialized`` 1 where ptxas says it serialized the kernel's
+    wgmma (C7510-C7515: registers short, or an accumulator touched
+    mid-pipeline), which costs a wgmma kernel much of its overlap."""
     out: Dict[str, Dict[str, int]] = {}
     entry = None
     for line in text.splitlines():
-        if m := _ENTRY.search(line):
+        if m := _SERIALIZED.search(line):
+            out.setdefault(m[1], {"registers": 0, "spill_bytes": 0})["wgmma_serialized"] = 1
+        elif m := _ENTRY.search(line):
             entry = out.setdefault(m[1], {"registers": 0, "spill_bytes": 0})
         elif entry is not None and (m := _SPILLS.search(line)):
             entry["spill_bytes"] = int(m[1]) + int(m[2])
@@ -208,9 +214,9 @@ SIGNATURES = {
     "repro_decode_attention": [_PTR] * 9 + [_INT] * 9 + [_PTR],
     # q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, D, causal, is_bf16, stream
     "repro_flash_attention": [_PTR] * 5 + [_INT] * 8 + [_PTR],
-    # x, Bm, Cm, dt, A_log, D, y, state, B, S, H, P, N, chunk,
+    # x, Bm, Cm, dt, A_log, D, y, state, carry, sync, B, S, H, P, N, chunk,
     # x / Bm / Cm batch and sequence strides (elements), is_bf16, stream
-    "repro_ssm_scan": [_PTR] * 8 + [_INT] * 6 + [_I64] * 6 + [_INT, _PTR],
+    "repro_ssm_scan": [_PTR] * 10 + [_INT] * 6 + [_I64] * 6 + [_INT, _PTR],
 }
 
 

@@ -5,15 +5,19 @@ head) the chunks in order, the (P, N) fp32 state carried across them, zero
 initial state; returns y ``(B, S, H, P)`` in x's type and the final state
 ``(B, H, P, N)`` fp32.  At zamba2-7b's training shape (B 2, S 4096, H 112,
 P 64, N 64, chunk 64, bf16) it is bound by bytes on an H100: x and y 235 MB,
-B, C, dt and the state 9.4 MB, 0.073 ms at 3.35 TB/s.  bf16 runs the four
-products of each chunk on the tensor cores (C·Bᵀ in bf16; W·x, C·Sᵀ and the
-state update in tf32 with their fp32 operand split into hi + lo, since one
-tf32 rounding misses the bf16 allowance), two blocks an SM, the next
-chunk's x, B, C and dt loaded by ``cp.async`` while this one computes;
-fp32 keeps its fp32-core path for the 2e-5 checks (see the source's note).
-The kernel reads x, B and C at their own batch and sequence strides, so
-the column slices of the conv output that `mamba2_block` hands it are not
-copied, and computes ``-exp(A_log)`` and D per head itself.
+B, C, dt and the state 9.4 MB, 0.073 ms at 3.35 TB/s.  bf16 runs
+`KERNEL`, designed for Hopper: each head's sequence split into segments of
+`SEGMENT_CHUNKS` chunks, a block each, the carried state passed from
+segment to segment by a look-back (the wrapper allocates its scratch:
+two fp32 states a head, and a zeroed ticket counter and flags), x, B and C
+loaded by TMA, the chunk's products on ``wgmma`` (C·Bᵀ in bf16; W·x, C·Sᵀ
+and the state update with their fp32 operand split into bf16 hi + lo,
+since one rounding misses the bf16 allowance); one launch a call, and
+the same y and state bit for bit from the same inputs.  fp32 keeps its
+fp32-core path for the 2e-5 checks (see the source's note).  The kernel
+reads x, B and C at their own batch and sequence strides, so the column
+slices of the conv output that `mamba2_block` hands it are not copied, and
+computes ``-exp(A_log)`` and D per head itself.
 
 The gradient is `_SSMScanFn`'s backward: plain autograd through
 `ssd_chunked`, recomputed on detached inputs (the reference trains through
@@ -37,6 +41,12 @@ from .scope import kernel_scope
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _MAX_DIM = 64       # chunk, P and N: the kernel's shared-memory tiles
+#: The bf16 kernel's name in the build and in the profiler.
+KERNEL = "ssm_scan_wgmma_kernel"
+#: Chunks in a segment of the bf16 kernel's split of the sequence
+#: (``csrc/ssm_scan.cu``, ``SEG``): a block a segment of one (batch, head).
+SEGMENT_CHUNKS = 4
+_STATE_TILE = 64 * 64   # fp32 values of a state as the bf16 kernel carries it
 
 
 def _check(x, Bm, Cm, dt, A_log, D, chunk: int) -> None:
@@ -77,12 +87,22 @@ def _launch(x, Bm, Cm, dt, A_log, D, chunk: int) -> Tuple[torch.Tensor, torch.Te
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y, state.zero_()
+    bf16 = x.dtype == torch.bfloat16
+    carry = sync = None
+    if bf16:
+        # The look-back's scratch: two carried states a (batch, head), and
+        # a ticket counter and each head's count of published segments.
+        many = S // chunk > SEGMENT_CHUNKS
+        carry = torch.empty((2 * B * H * _STATE_TILE if many else 0,), dtype=torch.float32,
+                            device=x.device)
+        sync = torch.zeros((1 + B * H,), dtype=torch.int32, device=x.device)
+    ptr = lambda t: 0 if t is None else t.data_ptr()
     with torch.cuda.device(x.device):
         code = _build.library().repro_ssm_scan(
             x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dt.data_ptr(), A_log.data_ptr(),
-            D.data_ptr(), y.data_ptr(), state.data_ptr(), B, S, H, P, N, chunk,
-            x.stride(0), x.stride(1), Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
-            int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+            D.data_ptr(), y.data_ptr(), state.data_ptr(), ptr(carry), ptr(sync), B, S, H, P,
+            N, chunk, x.stride(0), x.stride(1), Bm.stride(0), Bm.stride(1), Cm.stride(0),
+            Cm.stride(1), int(bf16), torch.cuda.current_stream().cuda_stream)
     _build.check(code, "ssm_scan")
     ssm_scan.launches += 1
     return y, state

@@ -250,7 +250,7 @@ def _gb(x) -> str:
 _KERNEL_NAMES = {"rms_norm": ("rms_norm_kernel",),
                  "decode_attention": ("decode_partial_kernel", "decode_bf16_tc_kernel"),
                  "flash_attention": ("flash_fwd_kernel", "flash_fwd_wgmma_kernel"),
-                 "ssm_scan": ("ssm_scan_kernel", "ssm_scan_bf16_kernel")}
+                 "ssm_scan": ("ssm_scan_kernel", "ssm_scan_wgmma_kernel")}
 
 
 def _wrapper_launches() -> Dict[str, int]:

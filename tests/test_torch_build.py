@@ -59,6 +59,15 @@ def test_parse_ptxas_reads_registers_and_spills_per_kernel():
     assert _build.parse_ptxas("no ptxas lines here") == {}
 
 
+def test_parse_ptxas_marks_a_kernel_whose_wgmma_ptxas_serialized():
+    text = (f"ptxas info    : (C7511) Potential Performance Loss: wgmma.mma_async instructions "
+            f"are serialized due to insufficient register resources for the wgmma pipeline in "
+            f"the function '{FLASH_BF16}'\n" + PTXAS)
+    got = _build.parse_ptxas(text)
+    assert got[FLASH_BF16] == {"registers": 128, "spill_bytes": 120, "wgmma_serialized": 1}
+    assert "wgmma_serialized" not in got[SSM_F32]
+
+
 @pytest.mark.parametrize("opcode,flash,ssm", [("HMMA", 2, 0), ("FFMA", 0, 1), ("LDSM", 1, 0)])
 def test_count_sass_counts_an_opcode_per_function(opcode, flash, ssm):
     assert _build.count_sass(SASS, opcode) == {FLASH_BF16: flash, SSM_F32: ssm}

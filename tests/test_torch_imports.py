@@ -148,7 +148,7 @@ def test_build_plan_needs_no_nvcc(tmp_path, monkeypatch):
                                       "repro_flash_attention", "repro_ssm_scan"}
     assert len(_build.SIGNATURES["repro_decode_attention"]) == 19
     assert len(_build.SIGNATURES["repro_flash_attention"]) == 14
-    assert len(_build.SIGNATURES["repro_ssm_scan"]) == 22
+    assert len(_build.SIGNATURES["repro_ssm_scan"]) == 24
 
 
 def test_source_hash_follows_the_sources(tmp_path, monkeypatch):

@@ -18,6 +18,8 @@ order of operations.  Model-level outputs (after the gated RMSNorm) at
 1e-4, as in tests/test_torch_transformer.py.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -307,66 +309,163 @@ STATE_TOL = dict(atol=1e-3, rtol=1e-3)
 
 
 def _tf32(t):
-    """fp32 -> tf32 as the kernel's masks do (and as the tensor cores read
-    an fp32 operand): the low 13 mantissa bits cleared."""
+    """fp32 -> tf32 as the tensor cores read an fp32 operand: the low 13
+    mantissa bits cleared."""
     return (t.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
 
 
-def _tensor_core_scan(x, Bm, Cm, dt, A_log, D, chunk, split=True):
+def _bf16(t):
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+#: How the kernel's fp32 operands (W, the carried state, wl·x) reach the
+#: tensor cores: split into bf16 hi + lo (the kernel), or cut once.
+CUTS = {"bf16x2": lambda a: _bf16(a) + _bf16(a - _bf16(a)), "bf16": _bf16, "tf32": _tf32,
+        None: lambda a: a}
+
+
+def _segments(nc, n_seg=None):
+    """Chunks of each segment: the kernel's split (`SEGMENT_CHUNKS` a
+    segment, the last shorter) or ``n_seg`` segments as even as they go,
+    some empty when there are more segments than chunks."""
+    if n_seg is None:
+        k = tscan.SEGMENT_CHUNKS
+        return [min(k, nc - i) for i in range(0, nc, k)]
+    return [len(a) for a in np.array_split(np.arange(nc), n_seg)]
+
+
+def _tensor_core_scan(x, Bm, Cm, dt, A_log, D, chunk, cut="bf16x2", n_seg=None,
+                      dtype=torch.float32, state_cut=None):
     """The bf16 `ssm_scan` kernel's arithmetic (csrc/ssm_scan.cu,
-    `ssm_scan_bf16_kernel`) in PyTorch on the CPU: C B^T from the bf16
-    values (exact products); W, the carried state and wl·B, the fp32
-    operands of the other three products, taken as hi + lo tf32
-    (``split``) or as one tf32; x and C, bf16, exact.  Returns (y in bf16,
-    state)."""
-    R = (lambda a: _tf32(a) + _tf32(a - _tf32(a))) if split else _tf32
+    `ssm_scan_wgmma_kernel`) in PyTorch on the CPU.  C B^T from the bf16
+    values (exact products); W, the carried state and wl·x, the fp32
+    operands of the other products, taken through ``cut`` (the state through ``state_cut`` where given); x,
+    B and C exact.  The sequence is split into segments (`_segments`):
+    sweep 1 gives each its
+    end state S_loc from a zero start and its decay dseg; the look-back
+    combines dseg · S_in + S_loc with the segment before's inclusive state
+    S_in; sweep 2 computes y from the true start states.  ``dtype`` float64
+    with ``cut`` None is the scan in float64.  Returns (y in x's type (as
+    ``dtype`` when that is float64), state)."""
+    R = CUTS[cut]
+    Rs = CUTS[state_cut or cut]
     B, S, H, P = x.shape
-    N, nc, f32 = Bm.shape[-1], S // chunk, torch.float32
-    xc = x.reshape(B, nc, chunk, H, P).to(f32)
-    Bc, Cc = (t.reshape(B, nc, chunk, N).to(f32) for t in (Bm, Cm))
-    dtc = dt.reshape(B, nc, chunk, H)
-    cum = torch.cumsum(-torch.exp(A_log) * dtc, dim=2)
+    N, nc, f = Bm.shape[-1], S // chunk, dtype
+    xc = x.reshape(B, nc, chunk, H, P).to(f)
+    Bc, Cc = (t.reshape(B, nc, chunk, N).to(f) for t in (Bm, Cm))
+    dtc = dt.reshape(B, nc, chunk, H).to(f)
+    cum = torch.cumsum(-torch.exp(A_log.to(f)) * dtc, dim=2)
     tri = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))[None, None, :, :, None]
     decay = torch.exp((cum[:, :, :, None] - cum[:, :, None]).masked_fill(~tri, -np.inf))
     G = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
     W = R(G[..., None] * (decay * dtc[:, :, None]))                      # (B,nc,i,j,H)
     wl = torch.exp(cum[:, :, -1:] - cum) * dtc                           # (B,nc,L,H)
-    wB = R(wl[..., None] * Bc[:, :, :, None, :])                         # (B,nc,L,H,N)
-    state = torch.zeros((B, H, P, N))
-    ys = []
-    for c in range(nc):
-        inter = torch.einsum("bin,bhpn->bihp", Cc[:, c], R(state))
-        ys.append(torch.exp(cum[:, c])[..., None] * inter
-                  + torch.einsum("bijh,bjhp->bihp", W[:, c], xc[:, c]))
-        state = state * torch.exp(cum[:, c, -1])[..., None, None] \
-            + torch.einsum("blhp,blhn->bhpn", xc[:, c], wB[:, c])
-    y = torch.stack(ys, 1) + xc * D[:, None]
-    return y.reshape(B, S, H, P).to(x.dtype), state
+    wx = R(wl[..., None] * xc)                                           # (B,nc,L,H,P)
+    dec = torch.exp(cum[:, :, -1])                                       # (B,nc,H)
+    dS = torch.einsum("bclhp,bcln->bchpn", wx, Bc)                       # (B,nc,H,P,N)
+    ys, s_prev, c0 = [], torch.zeros((B, H, P, N), dtype=f), 0
+    for n in _segments(nc, n_seg):
+        chunks = range(c0, c0 + n)
+        c0 += n
+        s_loc, dseg = torch.zeros_like(s_prev), torch.ones((B, H), dtype=f)
+        for c in chunks:                                                 # sweep 1
+            s_loc = s_loc * dec[:, c, :, None, None] + dS[:, c]
+            dseg = dseg * dec[:, c]
+        state, s_prev = s_prev, dseg[..., None, None] * s_prev + s_loc   # the look-back
+        for c in chunks:                                                 # sweep 2
+            inter = torch.einsum("bin,bhpn->bihp", Cc[:, c], Rs(state))
+            ys.append(torch.exp(cum[:, c])[..., None] * inter
+                      + torch.einsum("bijh,bjhp->bihp", W[:, c], xc[:, c]))
+            state = state * dec[:, c, :, None, None] + dS[:, c]
+    y = torch.stack(ys, 1) + xc * D.to(f)[:, None]
+    return y.reshape(B, S, H, P).to(x.dtype if f == torch.float32 else f), s_prev
 
 
-@pytest.mark.parametrize("case", SCAN_CASES + [(2, 96, 3, 16, 8, 32), (1, 64, 3, 12, 4, 16),
-                                               (1, 64, 2, 7, 4, 16)])
-def test_tensor_core_rounding_meets_the_bf16_allowance(case):
-    """The kernel's hi + lo tf32 products, emulated, against the Pallas
-    kernel in interpret mode on the same bf16 inputs, at chip_smoke.py's
-    bf16 allowances."""
+TC_CASES = SCAN_CASES + [(2, 96, 3, 16, 8, 32), (1, 64, 3, 12, 4, 16), (1, 64, 2, 7, 4, 16),
+                         (1, 320, 2, 64, 64, 64)]     # the last: the training shape's P, N, chunk
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_bf16(case):
+    """The Pallas kernel in interpret mode on `_scan_inputs`' bf16 inputs
+    (seed 30), and those inputs as torch tensors."""
     B, S, H, P, N, chunk = case
     j, t = _scan_inputs(B, S, H, P, N, seed=30, bf16=True)
     jy, js = jops.ssm_scan(*j, chunk=chunk)
-    ty, ts = _tensor_core_scan(*t, chunk)
+    return _np(jy), _np(js), t
+
+
+def _split_count(nc, split):
+    """The segment count a test names: the kernel's split (None), 1, 2, one
+    that does not divide the chunks, or more than there are chunks."""
+    return {"kernel": None, "one": 1, "two": 2,
+            "ragged": next(k for k in range(2, nc + 2) if nc % k), "more": nc + 2}[split]
+
+
+@pytest.mark.parametrize("split", ["kernel", "one", "two", "ragged", "more"])
+@pytest.mark.parametrize("case", TC_CASES)
+def test_tensor_core_rounding_meets_the_bf16_allowance(case, split):
+    """The kernel's bf16 hi + lo products and its split of the sequence,
+    emulated, against the Pallas kernel in interpret mode on the same bf16
+    inputs, at chip_smoke.py's bf16 allowances, for each way of cutting
+    the chunks into segments."""
+    jy, js, t = _pallas_bf16(case)
+    chunk = case[-1]
+    ty, ts = _tensor_core_scan(*t, chunk, n_seg=_split_count(case[1] // chunk, split))
     assert ty.dtype == torch.bfloat16
-    np.testing.assert_allclose(_np(ty), _np(jy), **BF16_Y_TOL)
-    np.testing.assert_allclose(_np(ts), _np(js), **STATE_TOL)
+    np.testing.assert_allclose(_np(ty), jy, **BF16_Y_TOL)
+    np.testing.assert_allclose(_np(ts), js, **STATE_TOL)
 
 
-def test_one_tf32_rounding_alone_misses_the_bf16_allowance():
-    """Why the kernel splits its fp32 operands: cut once to tf32 (10
-    mantissa bits), W, the state and wl·B move y beyond the bf16 allowance
-    at the training shape's P, N and chunk, where hi + lo stays within it."""
+def test_the_segments_follow_the_kernel_and_the_edges():
+    assert _segments(16) == [4, 4, 4, 4] and _segments(65) == [4] * 16 + [1]
+    assert _segments(1) == [1] and _segments(3) == [3]
+    assert _segments(4, 3) == [2, 1, 1] and _segments(2, 4) == [1, 1, 0, 0]
+    assert [_split_count(n, "ragged") for n in (3, 4, 6)] == [2, 3, 4]
+
+
+def _train_shape_ratio(cut, state_cut=None):
+    """The emulation's largest error over the bf16 allowance at the training
+    shape's P, N and chunk, against the plain version, under ``cut``."""
     B, S, H, P, N, chunk = 1, 512, 4, 64, 64, 64
     _, t = _scan_inputs(B, S, H, P, N, seed=31, bf16=True)
     want, _ = tssm.ssd_chunked(*t, chunk)
     allowed = BF16_Y_TOL["atol"] + BF16_Y_TOL["rtol"] * want.abs()
-    ratio = {split: float(((_tensor_core_scan(*t, chunk, split)[0].float() - want).abs()
-                           / allowed).max()) for split in (True, False)}
-    assert ratio[True] <= 1.0 < ratio[False], ratio
+    y = _tensor_core_scan(*t, chunk, cut, state_cut=state_cut)[0]
+    return float(((y.float() - want).abs() / allowed).max())
+
+
+def test_one_tf32_rounding_alone_misses_the_bf16_allowance():
+    """Why the kernel splits its fp32 operands: cut once to tf32 (10
+    mantissa bits), W, the state and wl·x move y beyond the bf16 allowance
+    at the training shape's P, N and chunk, where the kernel's bf16 hi + lo
+    stays within it."""
+    ratio = {cut: _train_shape_ratio(cut) for cut in ("bf16x2", "tf32")}
+    assert ratio["bf16x2"] <= 1.0 < ratio["tf32"], ratio
+
+
+def test_one_bf16_rounding_misses_the_bf16_allowance():
+    """The control of the kernel's split: with one bf16 rounding of W, the
+    state and wl·x (one rounding fewer) the emulation misses the allowance
+    at the training shape's P, N and chunk."""
+    assert _train_shape_ratio("bf16") > 1.0
+
+
+def test_one_bf16_rounding_of_the_state_alone_misses_the_bf16_allowance():
+    """Why C S^T takes two products: with the carried state alone cut once
+    to bf16 (W and wl·x split), y misses the allowance at the training
+    shape's P, N and chunk."""
+    assert _train_shape_ratio("bf16x2", state_cut="bf16") > 1.0
+
+
+@pytest.mark.parametrize("cut,passes", [("bf16x2", True), ("bf16", False)])
+def test_the_float64_gate_passes_the_split_and_refuses_one_rounding(cut, passes):
+    """chip_smoke.py's gate (`check_ssm_f64`) on the emulation: its mean
+    |y - y64| within 1.1 times that of y64 rounded once to bf16 with the
+    kernel's split, beyond it with one rounding."""
+    B, S, H, P, N, chunk = 1, 512, 4, 64, 64, 64
+    _, t = _scan_inputs(B, S, H, P, N, seed=32, bf16=True)
+    y64, _ = _tensor_core_scan(*t, chunk, cut=None, n_seg=1, dtype=torch.float64)
+    once = float((_bf16(y64) - y64).abs().mean())
+    got = float((_tensor_core_scan(*t, chunk, cut)[0].double() - y64).abs().mean())
+    assert (got <= 1.1 * once) == passes, got / once
