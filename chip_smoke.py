@@ -47,8 +47,15 @@ entry points (`repro_torch.examples`: quickstart, serve_lm, train_lm and
 its resume, fleet_runtime_demo, reconfiguration_demo) at their defaults
 on the card.  ``kernels`` also holds the rms_norm kernel's split-row
 entries (a mixer's norm on a "model" rank) against their plain versions
-and against the whole row's norm.  It checks that each path really went
-through its kernels (launch counts equal to their per-step formulas), that
+and against the whole row's norm, and rms_norm's gradient kernel (with
+the dscale sum) against `rms_norm_backward_plain` at every training path's norm shape, in fp32 and
+bf16, two calls bit for bit, with a control that sums half of the blocks'
+partials.  ``timing`` times each kernel beside its plain version, a
+library call and its bound, the launch floor (an empty kernel by the same
+route), and rms_norm's host path piece by piece; the ``train*`` phases
+record each hand-written kernel's device ms a step.  It checks that each
+path really went through its kernels (launch counts equal to their
+per-step formulas), that
 the kernels' path agrees with the plain path for serving and for training,
 and that a live slot (KV caches, and a recurrent stack's conv windows and
 SSM or xLSTM states) moved to another engine goes on decoding
@@ -257,12 +264,16 @@ class DeviceTimer:
 
 def profile_device_time(torch, fn, iters):
     """(device ms a call, the ten kernels that take most of it, kernel
-    launches a call) from `torch.profiler` tracing the card alone; (None,
-    [], 0) if the trace shows no device time.  The trace's events are read
-    as recorded, not through ``key_averages()``, whose processing takes
-    minutes for the million launches of a step with an sLSTM token loop."""
+    launches a call, each hand-written kernel's summed device ms and
+    launches a call by wrapper name) from `torch.profiler` tracing the card
+    alone; (None, [], 0, {}) if the trace shows no device time.  The
+    trace's events are read as recorded, not through ``key_averages()``,
+    whose processing takes minutes for the million launches of a step with
+    an sLSTM token loop."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.dryrun import _KERNEL_NAMES
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
@@ -274,11 +285,18 @@ def profile_device_time(torch, fn, iters):
             by_name[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
     rows = sorted(((us, n, key) for key, (us, n) in by_name.items() if us > 0), reverse=True)
     if not rows:
-        return None, [], 0
+        return None, [], 0, {}
     top = [dict(kernel=key[:72], ms_a_call=us / iters / 1e3, launches_a_call=n / iters)
            for us, n, key in rows[:10]]
+    ours = {}
+    for us, n, key in rows:
+        for name, kernels in _KERNEL_NAMES.items():
+            if any(k in key for k in kernels):
+                ms, count = ours.get(name, (0.0, 0))
+                ours[name] = (ms + us / iters / 1e3, count + n / iters)
     return (sum(us for us, _, _ in rows) / iters / 1e3, top,
-            sum(n for _, n, _ in rows) / iters)
+            sum(n for _, n, _ in rows) / iters,
+            {name: dict(ms_a_call=ms, launches_a_call=n) for name, (ms, n) in ours.items()})
 
 
 def bound(nbytes, flops, dtype_name):
@@ -300,10 +318,11 @@ def kernel_wrappers():
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rmsnorm import rms_norm
+    from repro_torch.kernels.rmsnorm import rms_norm, rms_norm_bwd
     from repro_torch.kernels.ssm_scan import ssm_scan
-    return {"rms_norm": rms_norm, "decode_attention": decode_attention,
-            "flash_attention": flash_attention, "ssm_scan": ssm_scan}
+    return {"rms_norm": rms_norm, "rms_norm_bwd": rms_norm_bwd,
+            "decode_attention": decode_attention, "flash_attention": flash_attention,
+            "ssm_scan": ssm_scan}
 
 
 def zero_counts():
@@ -346,7 +365,10 @@ def launches_per_step(cfg, train, prefill=False):
     step runs the forward, then recomputes under block remat the layers of
     whole periods (`stack_period`) with their shared blocks and every
     encoder layer, but not the tail layers, the shared blocks before them,
-    nor the final norms."""
+    nor the final norms.  A train step's backward takes each norm of the
+    forward once (a recomputed norm's backward is its first run's): two
+    launches of `rms_norm_bwd` a norm, the gradient kernel and the dscale
+    sum."""
     kinds = cfg.layer_pattern()
     every = cfg.shared_attn_every            # an MoE layer attends as a dense one does
     shared = [i for i in range(len(kinds)) if every and i % every == 0]
@@ -361,16 +383,17 @@ def launches_per_step(cfg, train, prefill=False):
 
     fwd = count(kinds, shared, 1)
     if not train and not prefill:
-        return {"rms_norm": fwd["rms_norm"], "decode_attention": fwd["attn"],
+        return {"rms_norm": fwd["rms_norm"], "rms_norm_bwd": 0, "decode_attention": fwd["attn"],
                 "flash_attention": 0, "ssm_scan": 0}
     fwd_norms = fwd["rms_norm"] + 2 * encoder + cross
     if prefill:
-        return {"rms_norm": fwd_norms, "decode_attention": 0, "flash_attention": encoder,
-                "ssm_scan": 0}
+        return {"rms_norm": fwd_norms, "rms_norm_bwd": 0, "decode_attention": 0,
+                "flash_attention": encoder, "ssm_scan": 0}
     period = stack_period(kinds, every)
     whole = len(kinds) // period * period
     again = count(kinds[:whole], [i for i in shared if i < whole], 0)
-    return {"rms_norm": fwd_norms + again["rms_norm"] + 2 * encoder, "decode_attention": 0,
+    return {"rms_norm": fwd_norms + again["rms_norm"] + 2 * encoder,
+            "rms_norm_bwd": 2 * fwd_norms, "decode_attention": 0,
             "flash_attention": (fwd["attn"] + fwd["cross"] + again["attn"] + again["cross"]
                                 + 2 * encoder),
             "ssm_scan": fwd["ssm_scan"] + again["ssm_scan"]}
@@ -386,35 +409,47 @@ def launches_per_step(cfg, train, prefill=False):
 # and the final norm; its prefill also the encoder's 2 a layer and final
 # norm, and the encoder's 24 attentions through the flash kernel; a train
 # step both stacks' attentions, the cross-attention too, and again under
-# remat); qwen2-vl-2b 28 attention layers.  `launches_per_step` must give
-# these.
+# remat); qwen2-vl-2b 28 attention layers.  A train step's backward
+# launches rms_norm's gradient kernel and its dscale sum once a norm of the
+# forward (not again for remat's).  `launches_per_step` must give these.
 MAIN_PATH_COUNTS = {
-    "serve": dict(rms_norm=81, decode_attention=40, flash_attention=0, ssm_scan=0),
-    "train": dict(rms_norm=81 + 80, decode_attention=0, flash_attention=40 + 40, ssm_scan=0),
-    "sharded_train": dict(rms_norm=81 + 80, decode_attention=0, flash_attention=40 + 40,
-                          ssm_scan=0),
-    "serve_zamba2": dict(rms_norm=191, decode_attention=14, flash_attention=0, ssm_scan=0),
-    "train_zamba2": dict(rms_norm=93 + 84, decode_attention=0, flash_attention=7 + 6,
-                         ssm_scan=39 + 36),
-    "serve_dbrx": dict(rms_norm=17, decode_attention=8, flash_attention=0, ssm_scan=0),
-    "train_dbrx": dict(rms_norm=7 + 6, decode_attention=0, flash_attention=3 + 3, ssm_scan=0),
-    "serve_xlstm": dict(rms_norm=97, decode_attention=0, flash_attention=0, ssm_scan=0),
-    "train_xlstm": dict(rms_norm=17 + 16, decode_attention=0, flash_attention=0, ssm_scan=0),
-    "serve_seamless": dict(rms_norm=73, decode_attention=24, flash_attention=0, ssm_scan=0),
-    "train_seamless": dict(rms_norm=122 + 120, decode_attention=0, flash_attention=72 + 72,
-                           ssm_scan=0),
-    "serve_qwen2vl": dict(rms_norm=57, decode_attention=28, flash_attention=0, ssm_scan=0),
-    "train_qwen2vl": dict(rms_norm=57 + 56, decode_attention=0, flash_attention=28 + 28,
-                          ssm_scan=0),
-    "relocate_train": dict(rms_norm=5 + 4, decode_attention=0, flash_attention=2 + 2,
-                           ssm_scan=0),
-    "live_move": dict(rms_norm=5 + 4, decode_attention=0, flash_attention=2 + 2, ssm_scan=0),
-    "adapt_train": dict(rms_norm=81 + 80, decode_attention=0, flash_attention=40 + 40,
+    "serve": dict(rms_norm=81, rms_norm_bwd=0, decode_attention=40, flash_attention=0,
+                  ssm_scan=0),
+    "train": dict(rms_norm=81 + 80, rms_norm_bwd=2 * 81, decode_attention=0,
+                  flash_attention=40 + 40, ssm_scan=0),
+    "sharded_train": dict(rms_norm=81 + 80, rms_norm_bwd=2 * 81, decode_attention=0,
+                          flash_attention=40 + 40, ssm_scan=0),
+    "serve_zamba2": dict(rms_norm=191, rms_norm_bwd=0, decode_attention=14, flash_attention=0,
+                         ssm_scan=0),
+    "train_zamba2": dict(rms_norm=93 + 84, rms_norm_bwd=2 * 93, decode_attention=0,
+                         flash_attention=7 + 6, ssm_scan=39 + 36),
+    "serve_dbrx": dict(rms_norm=17, rms_norm_bwd=0, decode_attention=8, flash_attention=0,
+                       ssm_scan=0),
+    "train_dbrx": dict(rms_norm=7 + 6, rms_norm_bwd=2 * 7, decode_attention=0,
+                       flash_attention=3 + 3, ssm_scan=0),
+    "serve_xlstm": dict(rms_norm=97, rms_norm_bwd=0, decode_attention=0, flash_attention=0,
                         ssm_scan=0),
-    "adapt_decode": dict(rms_norm=81, decode_attention=40, flash_attention=0, ssm_scan=0),
+    "train_xlstm": dict(rms_norm=17 + 16, rms_norm_bwd=2 * 17, decode_attention=0,
+                        flash_attention=0, ssm_scan=0),
+    "serve_seamless": dict(rms_norm=73, rms_norm_bwd=0, decode_attention=24,
+                           flash_attention=0, ssm_scan=0),
+    "train_seamless": dict(rms_norm=122 + 120, rms_norm_bwd=2 * 122, decode_attention=0,
+                           flash_attention=72 + 72, ssm_scan=0),
+    "serve_qwen2vl": dict(rms_norm=57, rms_norm_bwd=0, decode_attention=28, flash_attention=0,
+                          ssm_scan=0),
+    "train_qwen2vl": dict(rms_norm=57 + 56, rms_norm_bwd=2 * 57, decode_attention=0,
+                          flash_attention=28 + 28, ssm_scan=0),
+    "relocate_train": dict(rms_norm=5 + 4, rms_norm_bwd=2 * 5, decode_attention=0,
+                           flash_attention=2 + 2, ssm_scan=0),
+    "live_move": dict(rms_norm=5 + 4, rms_norm_bwd=2 * 5, decode_attention=0,
+                      flash_attention=2 + 2, ssm_scan=0),
+    "adapt_train": dict(rms_norm=81 + 80, rms_norm_bwd=2 * 81, decode_attention=0,
+                        flash_attention=40 + 40, ssm_scan=0),
+    "adapt_decode": dict(rms_norm=81, rms_norm_bwd=0, decode_attention=40, flash_attention=0,
+                         ssm_scan=0),
     # serve_seamless's prefill, once before its decode steps
-    "serve_seamless_prefill": dict(rms_norm=49 + 73, decode_attention=0, flash_attention=24,
-                                   ssm_scan=0),
+    "serve_seamless_prefill": dict(rms_norm=49 + 73, rms_norm_bwd=0, decode_attention=0,
+                                   flash_attention=24, ssm_scan=0),
 }
 
 
@@ -491,6 +526,88 @@ RMS_CASES = [((8, 1, 2048), "bfloat16"), ((300, 512), "float32"),
              ((8, 1, 6144), "bfloat16"), ((8192, 6144), "bfloat16"),   # dbrx's d_model
              ((8, 1, 1536), "bfloat16"), ((8192, 1536), "bfloat16"),   # qwen2-vl's d_model
              ((8, 1, 1024), "bfloat16"), ((8192, 1024), "bfloat16")]   # seamless's d_model
+
+# rms_norm's gradient at each training path's norm shape
+# (granite's and xlstm's d_model 2048; zamba2's 3584 and its gated norm over
+# d_inner 7168; dbrx's 6144; xlstm's mLSTM norm over 4096; qwen2-vl's 1536;
+# seamless's 1024, its encoder over 2048 frames) and at the decode shape,
+# in fp32 and bf16; then ragged and small rows.  dx is held per element
+# (``TOL``); dscale, a sum over up to 8192 rows, against its largest
+# magnitude: fp32 sums in another order, and in bf16 one rounding of nearly
+# equal fp32 sums, one step of the largest (2^-8) at most.
+RMS_BWD_SHAPES = [(TRAIN_BATCH, TRAIN_SEQ, 2048), (TRAIN_BATCH, TRAIN_SEQ, 3584),
+                  (TRAIN_BATCH, TRAIN_SEQ, 7168), (TRAIN_BATCH, TRAIN_SEQ, 6144),
+                  (TRAIN_BATCH, TRAIN_SEQ, 4096), (TRAIN_BATCH, TRAIN_SEQ, 1536),
+                  (TRAIN_BATCH, TRAIN_SEQ, 1024), (TRAIN_BATCH, 2048, 1024), (8, 1, 2048)]
+RMS_BWD_SMALL = [((3, 7, 64), "float32"), ((5, 136), "bfloat16"), ((5, 136), "float32"),
+                 ((1, 7168), "bfloat16"), ((300, 512), "float32"), ((2, 37, 256), "bfloat16")]
+DSCALE_TOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
+
+
+def check_norm_grad(torch, checks, shape, dt, device, control=False):
+    """rms_norm's gradient kernel and dscale sum against
+    `rms_norm_backward_plain` (dx per element at ``TOL``, dscale against its
+    largest magnitude at ``DSCALE_TOL``), two calls bit for bit.  Control
+    (``control``): dscale summed over only the first half of the blocks'
+    partials, which must fail."""
+    from repro_torch.kernels import rmsnorm as rk
+    dtype = getattr(torch, dt)
+    x = rand(torch, shape, dtype, 61, device) * 3.0
+    scale = rand(torch, shape[-1:], dtype, 62, device)
+    dy = rand(torch, shape, dtype, 63, device)
+    want_dx, want_ds = rk.rms_norm_backward_plain(x, scale, dy, 1e-5)
+    ds_err = lambda got: float((got.float() - want_ds.float()).abs().max()
+                               / want_ds.float().abs().max())
+    row = dict(kernel="rms_norm_bwd", shape=list(shape), dtype=dt, tol=TOL[dt],
+               dscale_tol=DSCALE_TOL[dt])
+    dx, ds = rk.rms_norm_bwd(x, scale, dy, 1e-5)
+    dx2, ds2 = rk.rms_norm_bwd(x, scale, dy, 1e-5)
+    torch.cuda.synchronize()
+    err, ratio = errors(torch, dx, want_dx, dt)
+    row.update(dx_max_abs_err=err, dx_err_over_tol=ratio, dscale_rel_err=ds_err(ds),
+               same_bits=bool(torch.equal(dx, dx2) and torch.equal(ds, ds2)))
+    require(dx.shape == x.shape and dx.dtype == dtype and ds.dtype == dtype,
+            f"rms_norm_bwd {shape} {dt}: shape/dtype")
+    require(ratio <= 1.0, f"rms_norm_bwd {shape} {dt}: dx error {err} beyond tolerance")
+    require(row["dscale_rel_err"] <= DSCALE_TOL[dt],
+            f"rms_norm_bwd {shape} {dt}: dscale error {row['dscale_rel_err']}")
+    require(row["same_bits"], f"rms_norm_bwd {shape} {dt}: two calls differ")
+    if control:
+        _, partial = rk._launch_bwd(x, scale, dy, 1e-5)
+        half = rk._launch_dscale_sum(partial[: partial.shape[0] // 2], scale)
+        row["control_half_blocks_dscale_rel_err"] = ds_err(half)
+        require(row["control_half_blocks_dscale_rel_err"] > DSCALE_TOL[dt],
+                f"rms_norm_bwd {shape} {dt}: the control (half of the blocks' partials) passed")
+    checks.append(row)
+    del x, dy, want_dx, dx, dx2
+
+
+def check_norm_grad_autograd(torch, checks, device):
+    """`rms_norm` under autograd on the card: an expanded gradient (of a
+    sum) and a non-contiguous one reach the gradient kernel, which
+    launches, and agree with `rms_norm_backward_plain`."""
+    from repro_torch.kernels import rmsnorm as rk
+    x = (rand(torch, (4, 300, 1024), torch.bfloat16, 64, device) * 2.0).requires_grad_(True)
+    scale = rand(torch, (1024,), torch.bfloat16, 65, device).requires_grad_(True)
+    before = rk.rms_norm_bwd.launches
+    out = rk.rms_norm(x, scale, 1e-5)
+    for name, dy in (("expanded", torch.ones((), dtype=out.dtype, device=device)
+                      .expand(out.shape)),
+                     ("transposed", rand(torch, (1024, 300, 4), torch.bfloat16, 66, device)
+                      .permute(2, 1, 0))):
+        gx, gs = torch.autograd.grad(out, (x, scale), dy, retain_graph=True)
+        want_dx, want_ds = rk.rms_norm_backward_plain(x.detach(), scale.detach(),
+                                                      dy.contiguous(), 1e-5)
+        err, ratio = errors(torch, gx, want_dx, "bfloat16")
+        ds = float((gs.float() - want_ds.float()).abs().max() / want_ds.float().abs().max())
+        checks.append(dict(kernel="rms_norm_bwd", case=f"autograd, {name} dy",
+                           dx_err_over_tol=ratio, dscale_rel_err=ds))
+        require(ratio <= 1.0 and ds <= DSCALE_TOL["bfloat16"],
+                f"rms_norm_bwd under autograd, {name} dy: dx {err}, dscale {ds}")
+    require(rk.rms_norm_bwd.launches == before + 4,
+            f"rms_norm_bwd under autograd launched {rk.rms_norm_bwd.launches - before} times, "
+            f"expected 4")
+
 
 # A row split over n ranks (the mixers' norms under tensor parallelism):
 # (rows shape, whole width, n, dtype).  zamba2's gated norm over d_inner
@@ -986,7 +1103,7 @@ def check_decode_invariants(torch, checks, shape, device):
 def phase_kernels(torch, device):
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rmsnorm import rms_norm, rms_norm_plain
+    from repro_torch.kernels.rmsnorm import rms_norm, rms_norm_bwd, rms_norm_plain
     from repro_torch.kernels.ssm_scan import ssm_scan
 
     checks = []
@@ -1003,6 +1120,13 @@ def phase_kernels(torch, device):
         require(ratio <= 1.0, f"rms_norm {shape} {dt}: error {err} beyond tolerance")
     for rows, width, n, dt in SPLIT_NORM_CASES:
         check_split_norm(torch, checks, rows, width, n, dt, device)
+    for shape in RMS_BWD_SHAPES:
+        for dt in ("float32", "bfloat16"):
+            check_norm_grad(torch, checks, shape, dt, device, control=True)
+        torch.cuda.empty_cache()
+    for shape, dt in RMS_BWD_SMALL:
+        check_norm_grad(torch, checks, shape, dt, device)
+    check_norm_grad_autograd(torch, checks, device)
 
     edge_lens = torch.tensor(DECODE_EDGE_LENS, dtype=torch.int32, device=device)
     decode_checks = [check_decode(torch, case, ragged_lens(torch, case[1], case[2], device))
@@ -1057,6 +1181,10 @@ def phase_kernels(torch, device):
 
     # What the wrappers refuse.
     for bad in (lambda: rms_norm(q.half(), q.half()[0, 0, 0], 1e-5),
+                lambda: rms_norm_bwd(q, q[0, 0, 0, :8].contiguous(), q, 1e-5),     # scale
+                lambda: rms_norm_bwd(q, q[0, 0, 0],                               # dy strides
+                                     q.transpose(0, 2).contiguous().transpose(0, 2), 1e-5),
+                lambda: rms_norm_bwd(q, q[0, 0, 0], q.float(), 1e-5),              # dy type
                 lambda: decode_attention(q.double(), k.double(), v.double(), lens),
                 lambda: decode_attention(q, k.transpose(1, 2).contiguous().transpose(1, 2),
                                          v, lens),
@@ -1170,7 +1298,8 @@ def phase_serve(torch, device, cfg, n_requests, phase="serve"):
         scratch["cache"], _ = engine._decode(params, scratch["cache"], tokens_in)
 
     step_call_ms = time_ms(torch, one_step, iters=3, warmup=1)
-    step_device_ms, top, step_launches = profile_device_time(torch, one_step, iters=3)
+    step_device_ms, top, step_launches, step_kernels = profile_device_time(torch, one_step,
+                                                                           iters=3)
     emit(phase=phase, model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
          params=n_params, dtype=cfg.compute_dtype, slots=SERVE_SLOTS,
          max_len=SERVE_MAX_LEN, requests=n_requests, steps=steps, tokens_generated=tokens,
@@ -1182,6 +1311,7 @@ def phase_serve(torch, device, cfg, n_requests, phase="serve"):
          device_idle_share=(None if step_device_ms is None
                             else 1.0 - step_device_ms / step_call_ms),
          decode_step_top_kernels=top, decode_step_kernel_launches=step_launches,
+         decode_step_kernels=step_kernels,
          setup_seconds=setup_s, launches=launches,
          launches_per_step=per_step,
          peak_memory_bytes=torch.cuda.max_memory_allocated(),
@@ -1253,7 +1383,8 @@ def phase_serve_encdec(torch, device, cfg, phase="serve_seamless"):
         box["cache"], _ = decode(params, box["cache"], tokens[-1])
 
     step_call_ms = time_ms(torch, one_step, iters=3, warmup=1)
-    step_device_ms, top, step_launches = profile_device_time(torch, one_step, iters=3)
+    step_device_ms, top, step_launches, step_kernels = profile_device_time(torch, one_step,
+                                                                           iters=3)
     generated = SERVE_SLOTS * SEAMLESS_DECODE_STEPS
     emit(phase=phase, model=cfg.name, layers=cfg.n_layers, encoder_layers=cfg.n_encoder_layers,
          d_model=cfg.d_model, params=sum(t.numel() for t in _leaves(params)),
@@ -1267,6 +1398,7 @@ def phase_serve_encdec(torch, device, cfg, phase="serve_seamless"):
          device_idle_share=(None if step_device_ms is None
                             else 1.0 - step_device_ms / step_call_ms),
          decode_step_top_kernels=top, decode_step_kernel_launches=step_launches,
+         decode_step_kernels=step_kernels,
          first_tokens=out[0, :8].tolist(), setup_seconds=setup_s, prefill_launches=at_prefill,
          launches=launches, launches_per_step=launches_per_step(cfg, train=False),
          cache_bytes=sum(t.numel() * t.element_size() for t in _leaves(cache)),
@@ -1391,11 +1523,12 @@ def phase_train(torch, device, cfg, steps, phase="train", data=None,
     torch.cuda.synchronize()
     step_call_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    step_device_ms, top, step_launches = profile_device_time(torch, one_step, iters=1)
+    step_device_ms, top, step_launches, step_kernels = profile_device_time(torch, one_step,
+                                                                           iters=1)
     profile_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in _leaves(state["params"]))
     TRAIN_LOGS[phase] = dict(log=log, step_s=step_s, peak=peak, step_device_ms=step_device_ms,
-                             step_call_ms=step_call_s * 1e3)
+                             step_call_ms=step_call_s * 1e3, step_kernels=step_kernels)
     if check_state is not None:
         check_state(state)
     emit(phase=phase, model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
@@ -1409,7 +1542,7 @@ def phase_train(torch, device, cfg, steps, phase="train", data=None,
          step_device_ms=step_device_ms, step_call_ms=step_call_s * 1e3,
          device_idle_share=(None if step_device_ms is None
                             else 1.0 - step_device_ms / (step_call_s * 1e3)),
-         step_top_kernels=top, step_kernel_launches=step_launches,
+         step_top_kernels=top, step_kernel_launches=step_launches, step_kernels=step_kernels,
          profiled_step_seconds=profile_s, launches=launches, launches_per_step=per_step,
          peak_memory_bytes=peak, setup_seconds=setup_s, setup_peak_memory_bytes=setup_peak)
     del trainer, state, box, batch
@@ -1533,7 +1666,7 @@ def phase_adapt(torch, device, cfg, controller, out_path, smi_line):
     from the profiler's launches or from the per-step count, or the
     launches of the path from steps times that count.  Returns the two
     paths' launches."""
-    from repro_torch.launch.dryrun import verify_cell
+    from repro_torch.launch.dryrun import LAUNCHES_A_SCOPE, verify_cell
     from repro_torch.launch.plans import CellPlan
 
     close_mesh()                   # verify_cell opens its own one-rank group
@@ -1552,9 +1685,10 @@ def phase_adapt(torch, device, cfg, controller, out_path, smi_line):
         launches[path] = read_counts()
         per_step = launches_per_step(cfg, train)
         want = {k: n for k, n in per_step.items() if n}
-        require(v["card_scopes"] == want and v["op_stats"]["scopes"] == want,
+        want_scopes = {k: n // LAUNCHES_A_SCOPE.get(k, 1) for k, n in want.items()}
+        require(v["card_scopes"] == want_scopes and v["op_stats"]["scopes"] == want_scopes,
                 f"{path}: scopes {v['card_scopes']} on the card, {v['op_stats']['scopes']} "
-                f"on meta, expected {want} a step")
+                f"on meta, expected {want_scopes} a step")
         require({k: n for k, n in v["profiler_launches"].items() if n} == want,
                 f"{path}: the profiler saw {v['profiler_launches']}, expected {want}")
         check_counts(path, launches[path], per_step, v["steps_run"])
@@ -1635,7 +1769,7 @@ def phase_slstm_layer(torch, device, cfg, phase="slstm_layer"):
                                                     for g in grads),
             f"{phase}: non-finite output or gradient")
     t0 = time.perf_counter()
-    device_ms, top, n_launches = profile_device_time(torch, forward_backward, iters=1)
+    device_ms, top, n_launches, _ = profile_device_time(torch, forward_backward, iters=1)
     profile_s = time.perf_counter() - t0
     n_slstm = sum(kind == "slstm" for kind in cfg.layer_pattern())
     emit(phase=phase, model=cfg.name, d_model=cfg.d_model, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
@@ -1907,71 +2041,75 @@ def _leaves(tree):
 
 def phase_timing(torch, device, launches, resources):
     """Times of the kernels at their paths' shapes (serving for rms_norm and
-    decode_attention, training for flash_attention and ssm_scan; the other
-    configs' heads beside granite's for the attention kernels, and
-    seamless's non-causal encoder and cross-attention), beside their
-    plain versions, one library call each where there is one, and the
-    card's bound.  ``launches`` holds each path's counts by phase name;
-    ``resources`` the build's registers, spills and HMMA / HGMMA counts by
-    kernel instance, which the tensor-core kernels' rows name."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.rmsnorm import rms_norm, rms_norm_plain, work
+    decode_attention, training for rms_norm's gradient, flash_attention and
+    ssm_scan; the other configs' heads beside granite's for the attention
+    kernels, and seamless's non-causal encoder and cross-attention), beside
+    their plain versions, one library call each where there is one, and the
+    card's bound; the launch floor (the empty kernel) and the forward's host
+    path piece by piece.  ``launches`` holds each path's counts by phase
+    name; ``resources`` the build's registers, spills and HMMA / HGMMA
+    counts by kernel instance, which the tensor-core kernels' rows name."""
+    from repro_torch.kernels.rmsnorm import empty_kernel
 
     out = []
-    dtype, dt = torch.bfloat16, "bfloat16"
+    dtype = torch.bfloat16
     timer = DeviceTimer(torch, device)
-    has_lib_norm = hasattr(F, "rms_norm")
     by_path = lambda name: {path: counts[name] for path, counts in launches.items()
                             if counts.get(name)}
 
-    def norm_times(x, scale):
-        """ms = device time a launch; call_ms = a call in a tight host loop.
-        The kernel's result is held against the plain version first."""
-        err, ratio = errors(torch, rms_norm(x, scale, 1e-5), rms_norm_plain(x, scale, 1e-5), dt)
-        require(ratio <= 1.0, f"timing: rms_norm {list(x.shape)} error {err} beyond tolerance")
-        ms, call = timer(lambda: rms_norm(x, scale, 1e-5), iters=200)
-        plain, plain_call = timer(lambda: rms_norm_plain(x, scale, 1e-5), iters=200)
-        lib, lib_call = (timer(lambda: F.rms_norm(x, x.shape[-1:], scale, 1e-5), iters=200)
-                         if has_lib_norm else (None, None))
-        ms2, call2 = timer(lambda: rms_norm(x, scale, 1e-5), iters=200)
-        flops, nbytes = work(x, scale)
-        b_ms, b_by = bound(nbytes, flops, "float32")   # fp32 math, no tensor cores
-        return dict(max_abs_err=err, ms=min(ms, ms2), plain_ms=plain, bound_ms=b_ms,
-                    bound_by=b_by,
-                    library_ms=lib, call_ms=min(call, call2), plain_call_ms=plain_call,
-                    library_call_ms=lib_call, shape=list(x.shape), bytes=nbytes)
+    with SmiSampler() as smi:
+        floor = repeated(timer, {"empty": (lambda: empty_kernel(device), 200)}, smi)["empty"]
+        norm = lambda shape, seed, scale: norm_times(
+            torch, timer, rand(torch, shape, dtype, seed, device), scale, smi)
+        # rms_norm: the decode step's (slots, 1, d_model).
+        scale = rand(torch, (2048,), dtype, 2, device)
+        row = norm((SERVE_SLOTS, 1, 2048), 1, scale)
+        counts = by_path("rms_norm")
+        out.append(dict(name="rms_norm", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
+                        replaces="src/repro/kernels/rmsnorm.py:24",
+                        launches=sum(counts.values()), launches_by_path=counts, tol=TOL["bfloat16"],
+                        **row, library="torch.nn.functional.rms_norm", dtype="bfloat16",
+                        launch_floor=dict(ms=floor["ms"], ms_spread=floor["ms_spread"],
+                                          call_ms=floor["call_ms"], readings=floor["runs"],
+                                          kernel="empty_kernel (csrc/rmsnorm.cu), one block "
+                                                 "of 32 threads, the same ctypes route"),
+                        host_path=host_breakdown(torch, rand(torch, (SERVE_SLOTS, 1, 2048), dtype,
+                                                             1, device), scale)))
+        # The same kernel where bytes, not the launch, set the time; and
+        # zamba2's gated norm over d_inner 7168 at the training shape.
+        out[-1]["large"] = norm((16384, 2048), 3, scale)
+        out[-1]["zamba2_gated_train"] = norm((TRAIN_BATCH, TRAIN_SEQ, 7168), 4,
+                                             rand(torch, (7168,), dtype, 5, device))
+        dbrx_scale = rand(torch, (6144,), dtype, 7, device)
+        out[-1]["dbrx_decode"] = norm((SERVE_SLOTS, 1, 6144), 6, dbrx_scale)
+        out[-1]["dbrx_train"] = norm((TRAIN_BATCH, TRAIN_SEQ, 6144), 8, dbrx_scale)
+        # xlstm-1.3b's mLSTM mixer norm over d_inner 4096, serving and training.
+        mlstm_scale = rand(torch, (4096,), dtype, 9, device)
+        out[-1]["xlstm_mlstm_decode"] = norm((SERVE_SLOTS, 1, 4096), 10, mlstm_scale)
+        out[-1]["xlstm_mlstm_train"] = norm((TRAIN_BATCH, TRAIN_SEQ, 4096), 11, mlstm_scale)
 
-    # rms_norm: the decode step's (slots, 1, d_model).
-    x = rand(torch, (SERVE_SLOTS, 1, 2048), dtype, 1, device)
-    scale = rand(torch, (2048,), dtype, 2, device)
-    counts = by_path("rms_norm")
-    out.append(dict(name="rms_norm", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
-                    replaces="src/repro/kernels/rmsnorm.py:24", launches=sum(counts.values()),
-                    launches_by_path=counts, tol=TOL[dt],
-                    **norm_times(x, scale), library="torch.nn.functional.rms_norm", dtype=dt))
-    # The same kernel where bytes, not the launch, set the time; and zamba2's
-    # gated norm over d_inner 7168 at the training shape.
-    out[-1]["large"] = norm_times(rand(torch, (16384, 2048), dtype, 3, device), scale)
-    out[-1]["zamba2_gated_train"] = norm_times(
-        rand(torch, (TRAIN_BATCH, TRAIN_SEQ, 7168), dtype, 4, device),
-        rand(torch, (7168,), dtype, 5, device))
-    dbrx_scale = rand(torch, (6144,), dtype, 7, device)
-    out[-1]["dbrx_decode"] = norm_times(rand(torch, (SERVE_SLOTS, 1, 6144), dtype, 6, device),
-                                        dbrx_scale)
-    out[-1]["dbrx_train"] = norm_times(rand(torch, (TRAIN_BATCH, TRAIN_SEQ, 6144), dtype, 8,
-                                            device), dbrx_scale)
-    # xlstm-1.3b's mLSTM mixer norm over d_inner 4096, serving and training.
-    mlstm_scale = rand(torch, (4096,), dtype, 9, device)
-    out[-1]["xlstm_mlstm_decode"] = norm_times(
-        rand(torch, (SERVE_SLOTS, 1, 4096), dtype, 10, device), mlstm_scale)
-    out[-1]["xlstm_mlstm_train"] = norm_times(
-        rand(torch, (TRAIN_BATCH, TRAIN_SEQ, 4096), dtype, 11, device), mlstm_scale)
+        # The split-row entries (a mixer's norm on a "model" rank): zamba2's
+        # gated norm over d_inner 7168 cut 8 ways at the training shape.
+        out[-1]["split_zamba2_gated_train_of_8"] = split_norm_times(
+            torch, timer, rand(torch, (TRAIN_BATCH, TRAIN_SEQ, 7168 // 8), dtype, 12, device),
+            rand(torch, (7168 // 8,), dtype, 13, device), 7168)
+        torch.cuda.empty_cache()
 
-    # The split-row entries (a mixer's norm on a "model" rank): zamba2's
-    # gated norm over d_inner 7168 cut 8 ways at the training shape.
-    out[-1]["split_zamba2_gated_train_of_8"] = split_norm_times(
-        torch, timer, rand(torch, (TRAIN_BATCH, TRAIN_SEQ, 7168 // 8), dtype, 12, device),
-        rand(torch, (7168 // 8,), dtype, 13, device), 7168)
+        # rms_norm's gradient at the training paths' shapes; granite's first.
+        counts = by_path("rms_norm_bwd")
+        rows = {key: norm_grad_times(torch, timer, (TRAIN_BATCH, TRAIN_SEQ, width), device, smi)
+                for key, width in NORM_GRAD_TIMED}
+        first = rows.pop(NORM_GRAD_TIMED[0][0])
+        out.append(dict(name="rms_norm_bwd", route="cuda", source="src/repro_torch/csrc/rmsnorm.cu",
+                        replaces="src/repro/models/layers.py:72",
+                        replaces_note="no Pallas backward: the reference's XLA differentiates "
+                                      "its jnp rms_norm, the function of "
+                                      "src/repro/kernels/rmsnorm.py:24",
+                        launches=sum(counts.values()), launches_by_path=counts,
+                        library="torch.nn.functional.rms_norm's backward alone "
+                                "(torch.autograd.grad after one forward)",
+                        **first, **rows))
+        torch.cuda.empty_cache()
 
     counts = by_path("decode_attention")
     with SmiSampler() as smi:
@@ -2010,6 +2148,132 @@ def phase_timing(torch, device, launches, resources):
                     launches=sum(counts.values()), launches_by_path=counts,
                     library="none: no single PyTorch call computes the scan", **rows))
     return out
+
+
+def norm_times(torch, timer, x, scale, smi):
+    """rms_norm at ``x``'s shape, bf16, held against the plain version first;
+    then kernel, plain version and `F.rms_norm` timed `TIMING_REPEATS` times
+    in turns (median and spread of the device ms and of the host loop's ms
+    a call), with the card's clock, power and temperature beside each
+    reading (``smi``)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import rms_norm, rms_norm_plain, work
+    err, ratio = errors(torch, rms_norm(x, scale, 1e-5), rms_norm_plain(x, scale, 1e-5),
+                        "bfloat16")
+    require(ratio <= 1.0, f"timing: rms_norm {list(x.shape)} error {err} beyond tolerance")
+    fns = {"kernel": (lambda: rms_norm(x, scale, 1e-5), 200),
+           "plain": (lambda: rms_norm_plain(x, scale, 1e-5), 200)}
+    if hasattr(F, "rms_norm"):
+        fns["library"] = (lambda: F.rms_norm(x, x.shape[-1:], scale, 1e-5), 200)
+    t = repeated(timer, fns, smi)
+    k, lib = t["kernel"], t.get("library", {})
+    flops, nbytes = work(x, scale)
+    b_ms, b_by = bound(nbytes, flops, "float32")   # fp32 math, no tensor cores
+    return dict(max_abs_err=err, ms=k["ms"], ms_spread=k["ms_spread"], plain_ms=t["plain"]["ms"],
+                bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / k["ms"],
+                library_ms=lib.get("ms"), call_ms=k["call_ms"],
+                call_ms_spread=k["call_ms_spread"], plain_call_ms=t["plain"]["call_ms"],
+                library_call_ms=lib.get("call_ms"), shape=list(x.shape), bytes=nbytes,
+                readings=t)
+
+
+# rms_norm's gradient timed at the training paths' rows (2 x 4096 positions)
+# of each width: granite's d_model (the row's own), zamba2's gated norm and
+# d_model, dbrx's, xlstm's mLSTM norm, qwen2-vl's and seamless's d_model.
+NORM_GRAD_TIMED = [("granite", 2048), ("zamba2_gated", 7168), ("zamba2", 3584),
+                   ("dbrx", 6144), ("xlstm_mlstm", 4096), ("qwen2vl", 1536), ("seamless", 1024)]
+
+
+def norm_grad_times(torch, timer, shape, device, smi):
+    """rms_norm's gradient at ``shape``, bf16, held against the plain version
+    first; then the kernel, the plain version and `F.rms_norm`'s backward
+    alone (`torch.autograd.grad` of one forward's output, the graph kept)
+    timed `TIMING_REPEATS` times in turns (`repeated`), with the card's
+    clock beside each reading.  A kernel call's time holds both its
+    launches (the gradient and the dscale sum)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as rk
+    dtype = torch.bfloat16
+    x = rand(torch, shape, dtype, 71, device) * 3.0
+    scale = rand(torch, shape[-1:], dtype, 72, device)
+    dy = rand(torch, shape, dtype, 73, device)
+    dx, ds = rk.rms_norm_bwd(x, scale, dy, 1e-5)
+    want_dx, want_ds = rk.rms_norm_backward_plain(x, scale, dy, 1e-5)
+    err, ratio = errors(torch, dx, want_dx, "bfloat16")
+    ds_err = float((ds.float() - want_ds.float()).abs().max() / want_ds.float().abs().max())
+    require(ratio <= 1.0 and ds_err <= DSCALE_TOL["bfloat16"],
+            f"timing: rms_norm_bwd {list(shape)}: dx error {err}, dscale {ds_err}")
+    del dx, want_dx
+    fns = {"kernel": (lambda: rk.rms_norm_bwd(x, scale, dy, 1e-5), 50),
+           "plain": (lambda: rk.rms_norm_backward_plain(x, scale, dy, 1e-5), 10)}
+    if hasattr(F, "rms_norm"):
+        xl, sl = x.detach().requires_grad_(True), scale.detach().requires_grad_(True)
+        y = F.rms_norm(xl, shape[-1:], sl, 1e-5)
+        fns["library"] = (lambda: torch.autograd.grad(y, (xl, sl), dy, retain_graph=True), 50)
+    t = repeated(timer, fns, smi)
+    k, lib = t["kernel"], t.get("library", {})
+    flops, nbytes = rk.work_bwd(x, scale)
+    b_ms, b_by = bound(nbytes, flops, "float32")
+    return dict(max_abs_err=err, dx_err_over_tol=ratio, dscale_rel_err=ds_err,
+                ms=k["ms"], ms_spread=k["ms_spread"], plain_ms=t["plain"]["ms"],
+                bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / k["ms"],
+                library_ms=lib.get("ms"), library_ms_spread=lib.get("ms_spread"),
+                library_ratio=k["ms"] / lib["ms"] if lib else None, call_ms=k["call_ms"],
+                call_ms_spread=k["call_ms_spread"], plain_call_ms=t["plain"]["call_ms"],
+                library_call_ms=lib.get("call_ms"), shape=list(shape), dtype="bfloat16",
+                bytes=nbytes, flops=flops, readings=t)
+
+
+HOST_LOOP_CALLS = 2000
+
+
+def host_breakdown(torch, x, scale):
+    """The forward's host path at ``x``'s shape, piece by piece: each piece
+    alone in a loop of `HOST_LOOP_CALLS` on the host's clock, microseconds
+    a call (the card synchronised around each loop), the median of
+    `TIMING_REPEATS` passes in turns; ``whole_call`` is `rms_norm` itself.
+    (`tools/norm_host_loop.py` holds two checkouts' whole calls side by
+    side.)"""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import rmsnorm as rk
+    from repro_torch.kernels.scope import kernel_scope
+    lib = _build.library()
+    out = torch.empty_like(x)
+    d = x.shape[-1]
+    rows, index = x.numel() // d, x.get_device()
+    xp, sp, op = x.data_ptr(), scale.data_ptr(), out.data_ptr()
+    stream = torch._C._cuda_getCurrentRawStream(index)
+
+    def scope():
+        with kernel_scope("rms_norm", lambda: rk.work(x, scale), "float32"):
+            pass
+
+    pieces = {
+        "checks": lambda: (scale.get_device() != x.get_device(), x.is_contiguous(),
+                           scale.is_contiguous(), d % 8, x.data_ptr() % 16,
+                           scale.data_ptr() % 16),
+        "empty_like": lambda: torch.empty_like(x),
+        "device_check": lambda: index == torch._C._cuda_getDevice(),
+        "raw_stream": lambda: torch._C._cuda_getCurrentRawStream(index),
+        "library_lookup": lambda: _build.library().repro_rms_norm,
+        "ctypes_launch": lambda: lib.repro_rms_norm(xp, sp, op, rows, d, 1e-5, 1, stream),
+        "kernel_scope": scope,
+        "whole_call": lambda: rk.rms_norm(x, scale, 1e-5),
+    }
+
+    def loop(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(HOST_LOOP_CALLS):
+            fn()
+        us = (time.perf_counter() - t0) / HOST_LOOP_CALLS * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    passes = [{name: loop(fn) for name, fn in pieces.items()} for _ in range(TIMING_REPEATS)]
+    return dict(shape=list(x.shape), calls=HOST_LOOP_CALLS, unit="us a call",
+                median={name: sorted(p[name] for p in passes)[len(passes) // 2]
+                        for name in pieces}, passes=passes)
 
 
 def split_norm_times(torch, timer, x, scale, width):
@@ -2967,7 +3231,7 @@ def phase_examples(torch):
         records["reconfiguration_demo"] = rc
     torch.cuda.synchronize()
     launches = read_counts()
-    for name in ("rms_norm", "flash_attention", "decode_attention"):
+    for name in ("rms_norm", "rms_norm_bwd", "flash_attention", "decode_attention"):
         require(launches[name] > 0, f"examples: {name} was not launched")
     shutil.rmtree(root / "train_lm", ignore_errors=True)
     emit(phase="examples", seconds=seconds, launches=launches, **records)

@@ -1,7 +1,9 @@
-// Hopper's asynchronous machinery, for sm_90a: mbarriers, TMA tensor loads,
-// named barriers, warpgroup matrix products (wgmma) and the register
-// hand-over between warpgroups (setmaxnreg).  Shared by the kernels that
-// feed wgmma from a TMA ring (csrc/flash_attention.cu, csrc/ssm_scan.cu).
+// Hopper's asynchronous machinery, for sm_90a: mbarriers, TMA tensor loads
+// and 1-D bulk copies, named barriers, warpgroup matrix products (wgmma)
+// and the register hand-over between warpgroups (setmaxnreg).  Shared by
+// the kernels that feed wgmma from a TMA ring (csrc/flash_attention.cu,
+// csrc/ssm_scan.cu) and by rms_norm's gradient (csrc/rmsnorm.cu), whose
+// rows arrive by bulk copies.
 //
 // Shared-memory operands of wgmma are described by a 64-bit descriptor
 // (PTX ISA, "Matrix Descriptor Format"): the start address, the leading and
@@ -107,6 +109,19 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(
           static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(static_cast<uint32_t>(__cvta_generic_to_shared(bar)))
+      : "memory");
+}
+
+// A 1-D bulk copy of `bytes` contiguous bytes (a multiple of 16; both
+// addresses 16-byte aligned) from device memory into shared memory; no
+// tensor map.  Completion (its bytes) is reported to `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
       "r"(static_cast<uint32_t>(__cvta_generic_to_shared(bar)))
       : "memory");
 }

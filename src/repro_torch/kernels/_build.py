@@ -209,6 +209,12 @@ SIGNATURES = {
     "repro_rms_sumsq": [_PTR, _PTR, _INT, _INT, _INT, _PTR],
     # x, scale, sumsq, out, rows, d, d_norm, eps, is_bf16, stream
     "repro_rms_norm_sumsq": [_PTR, _PTR, _PTR, _PTR, _INT, _INT, _INT, _FLOAT, _INT, _PTR],
+    # x, dy, scale, dx, partial, rows, d, eps, blocks, is_bf16, stream
+    "repro_rms_norm_bwd": [_PTR] * 5 + [_INT, _INT, _FLOAT, _INT, _INT, _PTR],
+    # partial, dscale, blocks, d, is_bf16, stream
+    "repro_rms_dscale_sum": [_PTR, _PTR, _INT, _INT, _INT, _PTR],
+    # stream (the empty kernel: the launch floor)
+    "repro_empty": [_PTR],
     # q, k, v, kv_len, out, part_m, part_l, part_acc, counters,
     # B, Sk, Hq, Hkv, D, chunk, n_splits, is_bf16, stream
     "repro_decode_attention": [_PTR] * 9 + [_INT] * 9 + [_PTR],

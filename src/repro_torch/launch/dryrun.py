@@ -246,11 +246,17 @@ def _gb(x) -> str:
 
 
 # ------------------------------------------------------------ on the card --
-#: The profiler's kernel names of each kernel wrapper.
+#: The profiler's kernel names of each kernel wrapper, matched as
+#: substrings of the profiler's names: no name may hold another wrapper's.
 _KERNEL_NAMES = {"rms_norm": ("rms_norm_kernel",),
+                 "rms_norm_bwd": ("rms_norm_bwd_kernel", "rms_dscale_sum_kernel"),
                  "decode_attention": ("decode_partial_kernel", "decode_bf16_tc_kernel"),
                  "flash_attention": ("flash_fwd_kernel", "flash_fwd_wgmma_kernel"),
                  "ssm_scan": ("ssm_scan_kernel", "ssm_scan_wgmma_kernel")}
+
+#: Kernel launches a scope of each wrapper makes on the card where not one:
+#: rms_norm's gradient is the gradient kernel and the dscale sum.
+LAUNCHES_A_SCOPE = {"rms_norm_bwd": 2}
 
 
 def _wrapper_launches() -> Dict[str, int]:
@@ -258,6 +264,7 @@ def _wrapper_launches() -> Dict[str, int]:
     from ..kernels import decode_attention, flash_attention, rmsnorm, ssm_scan
 
     return {"rms_norm": rmsnorm.rms_norm.launches,
+            "rms_norm_bwd": rmsnorm.rms_norm_bwd.launches,
             "decode_attention": decode_attention.decode_attention.launches,
             "flash_attention": flash_attention.flash_attention.launches,
             "ssm_scan": ssm_scan.ssm_scan.launches}
@@ -386,12 +393,13 @@ def verify_cell(arch: str, shape_name: str, batch: int, seq_len: int,
         scratch.cleanup()
     card = tally.row()
     launches, lost = _profiled_launches(prof.profiler.kineto_results.events())
-    scopes = {k: card["scopes"].get(k, 0) for k in launches}
+    scopes = {k: card["scopes"].get(k, 0) * LAUNCHES_A_SCOPE.get(k, 1) for k in launches}
     if card["flops"] != stats["flops"]:
         raise RuntimeError(f"verify_cell: {card['flops']:.6e} FLOPs on the card, "
                            f"{stats['flops']:.6e} traced on meta")
-    # A lost record only lowers a count, so launches equal to the scopes are
-    # the step's whole; short of them, the trace's losses leave it open.
+    # A lost record only lowers a count, so launches equal to the scopes
+    # (times `LAUNCHES_A_SCOPE`) are the step's whole; short of them, the
+    # trace's losses leave it open.
     if scopes != launches or card["scopes"] != stats["scopes"]:
         raise RuntimeError(f"verify_cell: kernel scopes {card['scopes']} on the card, "
                            f"{stats['scopes']} on meta, profiler launches {launches} "

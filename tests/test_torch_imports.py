@@ -144,8 +144,10 @@ def test_build_plan_needs_no_nvcc(tmp_path, monkeypatch):
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
     assert _build.library_path().parent == tmp_path
     assert set(_build.SIGNATURES) == {"repro_rms_norm", "repro_rms_sumsq",
-                                      "repro_rms_norm_sumsq", "repro_decode_attention",
-                                      "repro_flash_attention", "repro_ssm_scan"}
+                                      "repro_rms_norm_sumsq", "repro_rms_norm_bwd",
+                                      "repro_rms_dscale_sum", "repro_empty",
+                                      "repro_decode_attention", "repro_flash_attention",
+                                      "repro_ssm_scan"}
     assert len(_build.SIGNATURES["repro_decode_attention"]) == 19
     assert len(_build.SIGNATURES["repro_flash_attention"]) == 14
     assert len(_build.SIGNATURES["repro_ssm_scan"]) == 24

@@ -99,8 +99,9 @@ def test_a_scope_under_autograd_counts_once_and_its_backward_as_ops():
     x = torch.randn(3, 32, requires_grad=True)
     s = torch.ones(32, requires_grad=True)
     row, _ = _tally(lambda: torch.autograd.grad(krms.rms_norm(x, s).sum(), (x, s)))
-    assert row["scopes"] == {"rms_norm": 1}
-    assert row["bytes"] > krms.work(x, s)[1]         # the fp32 backward's ops
+    assert row["scopes"] == {"rms_norm": 1, "rms_norm_bwd": 1}
+    assert row["flops_kernel_interior"] == krms.work(x, s)[0] + krms.work_bwd(x, s)[0]
+    assert row["bytes"] > krms.work(x, s)[1] + krms.work_bwd(x, s)[1]   # and the sum's ops
 
 
 def test_flash_and_decode_scopes_on_meta_tensors():
@@ -214,7 +215,8 @@ def test_flops_against_the_references_hlo(tmp_path):
     assert abs(gap) / hlo["flops"] < 0.05
     assert abs(gap - attention_gap) / hlo["flops"] < 0.002
     assert port["scopes"] == {"flash_attention": 2 * cfg.n_layers,
-                              "rms_norm": 4 * cfg.n_layers + 1}
+                              "rms_norm": 4 * cfg.n_layers + 1,
+                              "rms_norm_bwd": 2 * cfg.n_layers + 1}
 
 
 # ------------------------------------------- work() against the old bounds --
