@@ -317,12 +317,12 @@ def rand(torch, shape, dtype, seed, device):
 def kernel_wrappers():
     """Each kernel's wrapper, whose ``launches`` counts its launches."""
     from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.kernels.rmsnorm import rms_norm, rms_norm_bwd
     from repro_torch.kernels.ssm_scan import ssm_scan
     return {"rms_norm": rms_norm, "rms_norm_bwd": rms_norm_bwd,
             "decode_attention": decode_attention, "flash_attention": flash_attention,
-            "ssm_scan": ssm_scan}
+            "flash_attention_bwd": flash_attention_bwd, "ssm_scan": ssm_scan}
 
 
 def zero_counts():
@@ -368,7 +368,8 @@ def launches_per_step(cfg, train, prefill=False):
     nor the final norms.  A train step's backward takes each norm of the
     forward once (a recomputed norm's backward is its first run's): two
     launches of `rms_norm_bwd` a norm, the gradient kernel and the dscale
-    sum."""
+    sum; and each flash attention of the forward once: two launches of
+    `flash_attention_bwd`, the dq and the dk/dv kernel."""
     kinds = cfg.layer_pattern()
     every = cfg.shared_attn_every            # an MoE layer attends as a dense one does
     shared = [i for i in range(len(kinds)) if every and i % every == 0]
@@ -384,11 +385,11 @@ def launches_per_step(cfg, train, prefill=False):
     fwd = count(kinds, shared, 1)
     if not train and not prefill:
         return {"rms_norm": fwd["rms_norm"], "rms_norm_bwd": 0, "decode_attention": fwd["attn"],
-                "flash_attention": 0, "ssm_scan": 0}
+                "flash_attention": 0, "flash_attention_bwd": 0, "ssm_scan": 0}
     fwd_norms = fwd["rms_norm"] + 2 * encoder + cross
     if prefill:
         return {"rms_norm": fwd_norms, "rms_norm_bwd": 0, "decode_attention": 0,
-                "flash_attention": encoder, "ssm_scan": 0}
+                "flash_attention": encoder, "flash_attention_bwd": 0, "ssm_scan": 0}
     period = stack_period(kinds, every)
     whole = len(kinds) // period * period
     again = count(kinds[:whole], [i for i in shared if i < whole], 0)
@@ -396,6 +397,7 @@ def launches_per_step(cfg, train, prefill=False):
             "rms_norm_bwd": 2 * fwd_norms, "decode_attention": 0,
             "flash_attention": (fwd["attn"] + fwd["cross"] + again["attn"] + again["cross"]
                                 + 2 * encoder),
+            "flash_attention_bwd": 2 * (fwd["attn"] + fwd["cross"] + encoder),
             "ssm_scan": fwd["ssm_scan"] + again["ssm_scan"]}
 
 
@@ -411,45 +413,47 @@ def launches_per_step(cfg, train, prefill=False):
 # step both stacks' attentions, the cross-attention too, and again under
 # remat); qwen2-vl-2b 28 attention layers.  A train step's backward
 # launches rms_norm's gradient kernel and its dscale sum once a norm of the
-# forward (not again for remat's).  `launches_per_step` must give these.
+# forward (not again for remat's), and flash attention's dq and dk/dv
+# kernels once an attention of the forward (granite 40 calls, zamba2 7,
+# dbrx 3, seamless 72, qwen2-vl 28).  `launches_per_step` must give these.
 MAIN_PATH_COUNTS = {
     "serve": dict(rms_norm=81, rms_norm_bwd=0, decode_attention=40, flash_attention=0,
-                  ssm_scan=0),
+                  flash_attention_bwd=0, ssm_scan=0),
     "train": dict(rms_norm=81 + 80, rms_norm_bwd=2 * 81, decode_attention=0,
-                  flash_attention=40 + 40, ssm_scan=0),
+                  flash_attention=40 + 40, flash_attention_bwd=2 * 40, ssm_scan=0),
     "sharded_train": dict(rms_norm=81 + 80, rms_norm_bwd=2 * 81, decode_attention=0,
-                          flash_attention=40 + 40, ssm_scan=0),
+                          flash_attention=40 + 40, flash_attention_bwd=2 * 40, ssm_scan=0),
     "serve_zamba2": dict(rms_norm=191, rms_norm_bwd=0, decode_attention=14, flash_attention=0,
-                         ssm_scan=0),
+                         flash_attention_bwd=0, ssm_scan=0),
     "train_zamba2": dict(rms_norm=93 + 84, rms_norm_bwd=2 * 93, decode_attention=0,
-                         flash_attention=7 + 6, ssm_scan=39 + 36),
+                         flash_attention=7 + 6, flash_attention_bwd=2 * 7, ssm_scan=39 + 36),
     "serve_dbrx": dict(rms_norm=17, rms_norm_bwd=0, decode_attention=8, flash_attention=0,
-                       ssm_scan=0),
+                       flash_attention_bwd=0, ssm_scan=0),
     "train_dbrx": dict(rms_norm=7 + 6, rms_norm_bwd=2 * 7, decode_attention=0,
-                       flash_attention=3 + 3, ssm_scan=0),
+                       flash_attention=3 + 3, flash_attention_bwd=2 * 3, ssm_scan=0),
     "serve_xlstm": dict(rms_norm=97, rms_norm_bwd=0, decode_attention=0, flash_attention=0,
-                        ssm_scan=0),
+                        flash_attention_bwd=0, ssm_scan=0),
     "train_xlstm": dict(rms_norm=17 + 16, rms_norm_bwd=2 * 17, decode_attention=0,
-                        flash_attention=0, ssm_scan=0),
+                        flash_attention=0, flash_attention_bwd=0, ssm_scan=0),
     "serve_seamless": dict(rms_norm=73, rms_norm_bwd=0, decode_attention=24,
-                           flash_attention=0, ssm_scan=0),
+                           flash_attention=0, flash_attention_bwd=0, ssm_scan=0),
     "train_seamless": dict(rms_norm=122 + 120, rms_norm_bwd=2 * 122, decode_attention=0,
-                           flash_attention=72 + 72, ssm_scan=0),
+                           flash_attention=72 + 72, flash_attention_bwd=2 * 72, ssm_scan=0),
     "serve_qwen2vl": dict(rms_norm=57, rms_norm_bwd=0, decode_attention=28, flash_attention=0,
-                          ssm_scan=0),
+                          flash_attention_bwd=0, ssm_scan=0),
     "train_qwen2vl": dict(rms_norm=57 + 56, rms_norm_bwd=2 * 57, decode_attention=0,
-                          flash_attention=28 + 28, ssm_scan=0),
+                          flash_attention=28 + 28, flash_attention_bwd=2 * 28, ssm_scan=0),
     "relocate_train": dict(rms_norm=5 + 4, rms_norm_bwd=2 * 5, decode_attention=0,
-                           flash_attention=2 + 2, ssm_scan=0),
+                           flash_attention=2 + 2, flash_attention_bwd=2 * 2, ssm_scan=0),
     "live_move": dict(rms_norm=5 + 4, rms_norm_bwd=2 * 5, decode_attention=0,
-                      flash_attention=2 + 2, ssm_scan=0),
+                      flash_attention=2 + 2, flash_attention_bwd=2 * 2, ssm_scan=0),
     "adapt_train": dict(rms_norm=81 + 80, rms_norm_bwd=2 * 81, decode_attention=0,
-                        flash_attention=40 + 40, ssm_scan=0),
+                        flash_attention=40 + 40, flash_attention_bwd=2 * 40, ssm_scan=0),
     "adapt_decode": dict(rms_norm=81, rms_norm_bwd=0, decode_attention=40, flash_attention=0,
-                         ssm_scan=0),
+                         flash_attention_bwd=0, ssm_scan=0),
     # serve_seamless's prefill, once before its decode steps
     "serve_seamless_prefill": dict(rms_norm=49 + 73, rms_norm_bwd=0, decode_attention=0,
-                                   flash_attention=24, ssm_scan=0),
+                                   flash_attention=24, flash_attention_bwd=0, ssm_scan=0),
 }
 
 
@@ -489,7 +493,8 @@ def phase_device(torch):
 
 # The tensor-core instances, each with the instruction its SASS must hold:
 # HGMMA (wgmma, a warpgroup's product) or HMMA (mma.sync, a warp's).
-TENSOR_CORE_KERNELS = {"flash_fwd_wgmma_kernel": "hgmma", "ssm_scan_wgmma_kernel": "hgmma",
+TENSOR_CORE_KERNELS = {"flash_fwd_wgmma_kernel": "hgmma", "flash_bwd_dq_wgmma_kernel": "hgmma",
+                       "flash_bwd_dkdv_wgmma_kernel": "hgmma", "ssm_scan_wgmma_kernel": "hgmma",
                        "decode_bf16_tc_kernel": "hmma"}
 
 
@@ -729,8 +734,9 @@ FLASH_TRAIN = ("granite-3-2b train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 8, 6
 FLASH_ZAMBA = ("zamba2-7b train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 32, 32, 112)
 FLASH_DBRX = ("dbrx-132b train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 48, 8, 128)
 FLASH_QWEN2VL = ("qwen2-vl-2b train", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 12, 2, 128)
-# seamless's training cross-attention (4096 decoder tokens against 2048
-# frames) and its encoder, both non-causal.
+# seamless's training decoder self-attention (causal), cross-attention (4096
+# decoder tokens against 2048 frames) and encoder, the last two non-causal.
+FLASH_SEAMLESS_DECODER = ("seamless decoder", TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 16, 64)
 FLASH_SEAMLESS_CROSS = ("seamless cross", TRAIN_BATCH, TRAIN_SEQ, SEAMLESS_TRAIN_FRAMES,
                         16, 16, 64)
 FLASH_SEAMLESS_ENCODER = ("seamless encoder", TRAIN_BATCH, SEAMLESS_TRAIN_FRAMES,
@@ -795,9 +801,84 @@ def check_flash(torch, checks, case, causal, dt, control=False):
     return err
 
 
+# flash_attention's gradient kernels: the bf16 allowance (each of dq, dk, dv
+# within 2^-8 of its largest magnitude plus 2^-6 of the element: P rounded
+# once to bf16 and dS split into hi + lo put the CPU emulation at 0.06-0.39
+# of it, a dropped key tile at 2.3 times it and more;
+# tests/test_torch_flash_bwd.py); fp32 at GRAD_TOL.  (name, B, Sq, Sk, Hq, Hkv, D, causal): small ragged shapes,
+# then each training path's G and d_head at 1000 rows, then two full
+# training shapes.
+BWD_BF16_TOL = dict(max_share=2.0 ** -8, rtol=2.0 ** -6)
+FLASH_BWD_CASES = [
+    ("ragged-g4-d64", 2, 300, 300, 8, 2, 64, True), ("sq<sk-g4-d64", 2, 77, 300, 8, 2, 64, False),
+    ("sq>sk-g1-d128", 1, 300, 77, 4, 4, 128, False), ("ragged-g1-d32", 2, 300, 300, 4, 4, 32, True),
+    ("granite-g4-d64", 1, 1000, 1000, 8, 2, 64, True),
+    ("zamba2-g1-d112", 1, 1000, 1000, 4, 4, 112, True),
+    ("dbrx-qwen2vl-g6-d128", 1, 1000, 1000, 12, 2, 128, True),
+    ("seamless-cross-g1-d64", 2, 1000, 517, 4, 4, 64, False),
+    ("g8-d96", 1, 333, 333, 8, 1, 96, True),
+]
+FLASH_BWD_TRAIN = [("granite-3-2b train",) + FLASH_TRAIN[1:] + (True,),
+                   ("zamba2-7b train",) + FLASH_ZAMBA[1:] + (True,)]
+
+
+def bwd_errors(torch, got, want, dt):
+    """(max abs error, max of error over its allowance) over dq, dk, dv."""
+    worst = (0.0, 0.0)
+    for g, w in zip(got, want):
+        if dt == "float32":
+            err, ratio = errors(torch, g, w, dt, GRAD_TOL)
+        else:
+            e = (g.float() - w.float()).abs()
+            allowed = (BWD_BF16_TOL["max_share"] * float(w.float().abs().max())
+                       + BWD_BF16_TOL["rtol"] * w.float().abs())
+            err, ratio = float(e.max()), float((e / allowed).max())
+        worst = (max(worst[0], err), max(worst[1], ratio))
+    return worst
+
+
+def check_flash_bwd(torch, checks, case, dt, control=False):
+    """The gradient kernels against their plain version (`_flash_bwd_rule`
+    on the card), and two calls bit for bit.  With ``control``, also the
+    plain version with the last key tile (64 keys) left out, which the same
+    check must refuse."""
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
+                                                     flash_attention_bwd_plain)
+    name, B, Sq, Sk, Hq, Hkv, D, causal = case
+    dtype = getattr(torch, dt)
+    q = rand(torch, (B, Sq, Hq, D), dtype, 51, "cuda")
+    k = rand(torch, (B, Sk, Hkv, D), dtype, 52, "cuda")
+    v = rand(torch, (B, Sk, Hkv, D), dtype, 53, "cuda")
+    dout = rand(torch, (B, Sq, Hq, D), dtype, 54, "cuda")
+    out, lse = flash_attention(q, k, v, causal)
+    got = flash_attention_bwd(q, k, v, out, lse, dout, causal)
+    again = flash_attention_bwd(q, k, v, out, lse, dout, causal)
+    torch.cuda.synchronize()
+    require(all(g.shape == t.shape and g.dtype == dtype for g, t in zip(got, (q, k, v))),
+            f"flash_attention_bwd {name}: shape/dtype")
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    want = flash_attention_bwd_plain(q, k, v, out, lse, dout, causal)
+    err, ratio = bwd_errors(torch, got, want, dt)
+    row = dict(kernel="flash_attention_bwd", case=name, shape=[B, Sq, Sk, Hq, Hkv, D],
+               causal=causal, dtype=dt, max_abs_err=err, err_over_tol=ratio,
+               tol=GRAD_TOL if dt == "float32" else BWD_BF16_TOL, bit_for_bit_twice=same)
+    checks.append(row)
+    require(ratio <= 1.0, f"flash_attention_bwd {name} {dt}: error {err} beyond tolerance")
+    require(same, f"flash_attention_bwd {name} {dt}: two calls differ")
+    if control:
+        keep = (Sk - 1) // 64 * 64
+        dq, dk, dv = flash_attention_bwd_plain(q, k[:, :keep], v[:, :keep], out, lse, dout,
+                                               causal)
+        pad = lambda t: torch.cat([t, torch.zeros_like(k[:, keep:])], dim=1)
+        _, c_ratio = bwd_errors(torch, (dq, pad(dk), pad(dv)), want, dt)
+        row["control_last_key_tile_dropped"] = dict(keys=Sk - keep, err_over_tol=c_ratio)
+        require(c_ratio > 1.0, f"flash_attention_bwd {name}: the check passes a dropped key tile")
+    return err
+
+
 def check_flash_grad(torch, checks, Hq=8, Hkv=2, D=64, causal=True, Sq=300, Sk=300):
-    """The training autograd Function (CUDA forward, ported backward) against
-    autograd through the plain attention, fp32."""
+    """The training autograd Function (CUDA forward and backward kernels)
+    against autograd through the plain attention, fp32."""
     from repro_torch.models.attention import flash_attention_jnp, gqa_reference
     B, chunk = 2, 128                                        # ragged last chunks
     base = [rand(torch, shape, torch.float32, 31 + i, "cuda")
@@ -1102,7 +1183,7 @@ def check_decode_invariants(torch, checks, shape, device):
 
 def phase_kernels(torch, device):
     from repro_torch.kernels.decode_attention import decode_attention
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.kernels.rmsnorm import rms_norm, rms_norm_bwd, rms_norm_plain
     from repro_torch.kernels.ssm_scan import ssm_scan
 
@@ -1165,6 +1246,12 @@ def phase_kernels(torch, device):
     # (G 1, d_head 64), and G 6 at d_head 128.
     check_flash_grad(torch, checks, Hq=4, Hkv=4, D=64, causal=False, Sq=300, Sk=172)
     check_flash_grad(torch, checks, Hq=6, Hkv=1, D=128, causal=False, Sq=172, Sk=300)
+    for case in FLASH_BWD_CASES:
+        for dt in ("float32", "bfloat16"):
+            check_flash_bwd(torch, checks, case, dt, control=dt == "bfloat16")
+    for case in FLASH_BWD_TRAIN:
+        check_flash_bwd(torch, checks, case, "bfloat16", control=True)
+        torch.cuda.empty_cache()
 
     for case in SSM_CASES:
         for dt in ("float32", "bfloat16"):
@@ -1191,6 +1278,11 @@ def phase_kernels(torch, device):
                 lambda: flash_attention(k.double(), k.double(), k.double()),
                 lambda: flash_attention(k.transpose(1, 2).contiguous().transpose(1, 2), k, k),
                 lambda: flash_attention(*[k[..., :60].contiguous()] * 3),         # 60 % 8
+                lambda: flash_attention_bwd(k.half(), k.half(), k.half(), k.half(),  # type
+                                            k[:, 0].float(), k.half()),
+                lambda: flash_attention_bwd(                                     # strides
+                    *[k.transpose(1, 2).contiguous().transpose(1, 2)] * 4,
+                    torch.zeros(k.shape[0], k.shape[2], 1, k.shape[1], device=device), k),
                 lambda: decode_attention(q[..., :60].contiguous(), k[..., :60].contiguous(),
                                          v[..., :60].contiguous(), lens),
                 lambda: ssm_scan(*ssm_inputs(torch, (1, 96, 2, 72, 8, 32), torch.float32, 3,
@@ -2140,6 +2232,27 @@ def phase_timing(torch, device, launches, resources):
                             "(is_causal, enable_gqa)", **rows))
     torch.cuda.empty_cache()
 
+    counts = by_path("flash_attention_bwd")
+    with SmiSampler() as smi:
+        times = lambda case, causal=True: flash_bwd_times(torch, timer, device, case, resources,
+                                                          smi, causal)
+        rows = dict(times(FLASH_TRAIN), zamba2_d112=times(FLASH_ZAMBA),
+                    dbrx_d128=times(FLASH_DBRX), qwen2vl_g6_d128=times(FLASH_QWEN2VL),
+                    seamless_decoder=times(FLASH_SEAMLESS_DECODER),
+                    seamless_cross=times(FLASH_SEAMLESS_CROSS, False),
+                    seamless_encoder=times(FLASH_SEAMLESS_ENCODER, False))
+    out.append(dict(name="flash_attention_bwd", route="cuda",
+                    source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                    replaces="src/repro/models/attention.py:169",
+                    replaces_note="no Pallas backward: the custom_vjp rule of the reference's "
+                                  "flash_attention_jnp, the gradient of the function of "
+                                  "src/repro/kernels/flash_attention.py:68",
+                    launches=sum(counts.values()), launches_by_path=counts,
+                    library="torch.autograd.grad of torch.nn.functional."
+                            "scaled_dot_product_attention(is_causal, enable_gqa) after one "
+                            "forward, the graph retained: the backward alone", **rows))
+    torch.cuda.empty_cache()
+
     counts = by_path("ssm_scan")
     with SmiSampler() as smi:
         rows = ssm_times(torch, timer, device, SSM_TRAIN, resources, smi)
@@ -2520,6 +2633,63 @@ def flash_times(torch, timer, device, case, resources, smi, causal=True):
                 achieved_gb_per_s=nbytes / (ms * 1e-3) / 1e9,
                 shape=[B, Sq, Sk, Hq, Hkv, D], dtype=dt, causal=causal, readings=t,
                 **instance(resources, kernel_instance(D)))
+
+
+def flash_bwd_times(torch, timer, device, case, resources, smi, causal=True):
+    """flash_attention's gradient at a path's shape, bf16, held against the
+    plain version first; SDPA's backward beside (its forward once with the
+    graph retained, then `torch.autograd.grad` alone, the backend SDPA
+    picked named by its grad_fn).  Kernel and SDPA are timed
+    `TIMING_REPEATS` times in turn (median and spread of the device ms and
+    of the host loop's), with the card's clock, power and temperature
+    during each reading (``smi``); the plain version once, by `time_ms`.
+    ``library_ratio`` is kernel / SDPA, ``bound_share`` bound / kernel; the
+    build's registers, spills and HGMMA counts of the two instances that
+    run at this d_head."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (bwd_kernel_instances, flash_attention,
+                                                     flash_attention_bwd,
+                                                     flash_attention_bwd_plain, work_bwd)
+    dtype, dt = torch.bfloat16, "bfloat16"
+    _, B, Sq, Sk, Hq, Hkv, D = case
+    q = rand(torch, (B, Sq, Hq, D), dtype, 61, device)
+    k = rand(torch, (B, Sk, Hkv, D), dtype, 62, device)
+    v = rand(torch, (B, Sk, Hkv, D), dtype, 63, device)
+    dout = rand(torch, (B, Sq, Hq, D), dtype, 64, device)
+    out, lse = flash_attention(q, k, v, causal)
+    args = (q, k, v, out, lse, dout, causal)
+    err, ratio = bwd_errors(torch, flash_attention_bwd(*args), flash_attention_bwd_plain(*args),
+                            dt)
+    require(ratio <= 1.0, f"timing: flash_attention_bwd {case[0]} error {err} beyond tolerance")
+    # The rule's block loops queue more launches than DeviceTimer's busy
+    # queue leaves room for: CUDA events around three calls (the card, not
+    # the host, sets a call's 20-90 ms).
+    plain = time_ms(torch, lambda: flash_attention_bwd_plain(*args), iters=3, warmup=1)
+    fns = {"kernel": (lambda: flash_attention_bwd(*args), 20)}
+    backend = None
+    if "enable_gqa" in (F.scaled_dot_product_attention.__doc__ or ""):
+        leaves = [t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v)]
+        o = F.scaled_dot_product_attention(*leaves, is_causal=causal, enable_gqa=True)
+        g = dout.transpose(1, 2)
+        backend = o.grad_fn.name()
+        fns["library"] = (lambda: torch.autograd.grad(o, leaves, g, retain_graph=True), 20)
+    t = repeated(timer, fns, smi)
+    lib = t.get("library", {})
+    ms = t["kernel"]["ms"]
+    flops, nbytes = work_bwd(q, k, v, causal)
+    b_ms, b_by = bound(nbytes, flops, dt)
+    dq_name, dkdv_name = bwd_kernel_instances(D)
+    return dict(max_abs_err=err, err_over_tol=ratio, tol=BWD_BF16_TOL, ms=ms,
+                ms_spread=t["kernel"]["ms_spread"], plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, bound_share=b_ms / ms, library_ms=lib.get("ms"),
+                library_ms_spread=lib.get("ms_spread"), library_backend=backend,
+                library_ratio=ms / lib["ms"] if lib else None,
+                call_ms=t["kernel"]["call_ms"], call_ms_spread=t["kernel"]["call_ms_spread"],
+                library_call_ms=lib.get("call_ms"), bytes=nbytes,
+                flops=flops, achieved_tflops=flops / (ms * 1e-3) / 1e12,
+                shape=[B, Sq, Sk, Hq, Hkv, D], dtype=dt, causal=causal, readings=t,
+                dq_kernel=instance(resources, dq_name),
+                dkdv_kernel=instance(resources, dkdv_name))
 
 
 def ssm_times(torch, timer, device, case, resources, smi):
@@ -3231,7 +3401,8 @@ def phase_examples(torch):
         records["reconfiguration_demo"] = rc
     torch.cuda.synchronize()
     launches = read_counts()
-    for name in ("rms_norm", "rms_norm_bwd", "flash_attention", "decode_attention"):
+    for name in ("rms_norm", "rms_norm_bwd", "flash_attention", "flash_attention_bwd",
+                 "decode_attention"):
         require(launches[name] > 0, f"examples: {name} was not launched")
     shutil.rmtree(root / "train_lm", ignore_errors=True)
     emit(phase="examples", seconds=seconds, launches=launches, **records)

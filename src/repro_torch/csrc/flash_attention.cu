@@ -612,30 +612,15 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// The map of a (B, S, H, d) bf16 tensor as (d, H, S, B), boxes of 64
-// columns x `rows` rows of one head, 128-byte swizzled; false on failure.
-bool bf16_map(CUtensorMap* map, const void* base, int B, int S, int H, int d, int rows) {
-  const repro::EncodeTiled encode = repro::encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)H * d * 2,
-                                 (cuuint64_t)S * H * d * 2};
-  const cuuint32_t box[4] = {FA_BOX, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* out, void* lse, int B,
                 int Sq, int Sk, int Hq, int Hkv, int d, int causal, cudaStream_t stream) {
   const int blocks_q = (Sq + FA_BQ - 1) / FA_BQ;
   if (blocks_q > 65535) return -1;
   CUtensorMap tq, tk, tv;
-  if (!bf16_map(&tq, q, B, Sq, Hq, d, FA_BQ) || !bf16_map(&tk, k, B, Sk, Hkv, d, FA_BK) ||
-      !bf16_map(&tv, v, B, Sk, Hkv, d, FA_BK))
+  if (!repro::bf16_bshd_map(&tq, q, B, Sq, Hq, d, FA_BQ) ||
+      !repro::bf16_bshd_map(&tk, k, B, Sk, Hkv, d, FA_BK) ||
+      !repro::bf16_bshd_map(&tv, v, B, Sk, Hkv, d, FA_BK))
     return (int)cudaErrorInvalidValue;
   constexpr size_t smem = FaTile<D>::SMEM;
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma_kernel<D>,

@@ -2,8 +2,8 @@
 // and 1-D bulk copies, named barriers, warpgroup matrix products (wgmma)
 // and the register hand-over between warpgroups (setmaxnreg).  Shared by
 // the kernels that feed wgmma from a TMA ring (csrc/flash_attention.cu,
-// csrc/ssm_scan.cu) and by rms_norm's gradient (csrc/rmsnorm.cu), whose
-// rows arrive by bulk copies.
+// csrc/flash_attention_bwd.cu, csrc/ssm_scan.cu) and by rms_norm's
+// gradient (csrc/rmsnorm.cu), whose rows arrive by bulk copies.
 //
 // Shared-memory operands of wgmma are described by a 64-bit descriptor
 // (PTX ISA, "Matrix Descriptor Format"): the start address, the leading and
@@ -161,6 +161,24 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
+// The map of a (B, S, H, d) bf16 tensor as (d, H, S, B), boxes of 64
+// columns x `rows` rows of one head, 128-byte swizzled: rows past a batch's
+// S and columns past d read as zeros.  False on failure.
+inline bool bf16_bshd_map(CUtensorMap* map, const void* base, int B, int S, int H, int d,
+                          int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)H * d * 2,
+                                 (cuuint64_t)S * H * d * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // ------------------------------------------------------------ setmaxnreg --
 // Every warp of the warpgroup executes these together.
 template <int N>
@@ -261,6 +279,28 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(int(acc)));
+}
+
+// d (+)= a b: m64n64k16, bf16 operands A and B both from shared memory
+// (descriptors), both K-major; fp32 accumulators, d overwritten when !acc.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, bool acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(int(acc)));
 }
 

@@ -23,6 +23,20 @@ source's note.
 
 Plain version: `flash_attention_plain`, which is `gqa_reference` plus the
 log-sum-exp of the same masked scores.
+
+The gradient, `flash_attention_bwd`, wraps ``csrc/flash_attention_bwd.cu``:
+the reference's `custom_vjp` rule (`_flash_bwd_rule`) as two kernels, a dq
+pass (a block per query tile and head, which also writes each row's delta
+= sum(dout * out)) and a dk/dv pass (a block per key tile and kv head,
+over the query tiles of every head of the group), without atomics, so two
+calls agree bit for bit.  Bound by operations: five products over the
+visible pairs (`work_bwd`, 2.5 times the forward's FLOPs).  bf16 runs on
+wgmma from a TMA ring, P rounded once to bf16 for dV and dS split into
+bf16 hi + lo for dQ and dK; with S and dP recomputed by both passes that is
+9 products, so the kernels can reach at most 5/9 of the bound.  fp32 runs
+on the fp32 cores.  One call is two launches, both counted in
+`flash_attention_bwd.launches`.  Plain version: `flash_attention_bwd_plain`,
+the rule itself.
 """
 
 from __future__ import annotations
@@ -31,7 +45,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.models.attention import NEG_INF, gqa_reference
+from repro_torch.models.attention import NEG_INF, _flash_bwd_rule, gqa_reference
 
 from . import _build
 from .scope import kernel_scope
@@ -63,21 +77,39 @@ def kernel_instance(d: int) -> str:
     return f"flash_fwd_wgmma_kernel<{64 if d <= 64 else 128}>"
 
 
-def work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True
-         ) -> Tuple[int, int]:
-    """(FLOPs, bytes) of one call: q.k and p.v, a multiply-add each, over
-    the (query, key) pairs the mask lets through (causal: key j for query
-    i when ``j <= i``, the kernel skipping tiles above the diagonal); q, k
-    and v read once, the output (q's size) and the fp32 lse written once."""
-    B, Sq, Hq, D = q.shape
+def _pairs(q: torch.Tensor, k: torch.Tensor, causal: bool) -> int:
+    """The (query, key) pairs of one head that the mask lets through
+    (causal: key j for query i when ``j <= i``), over the batch."""
+    B, Sq = q.shape[:2]
     Sk = k.shape[1]
     if causal:
         seen = min(Sq, Sk)                  # queries below Sk see keys 0..i
-        pairs = B * (seen * (seen + 1) // 2 + (Sq - seen) * Sk)
-    else:
-        pairs = B * Sq * Sk
+        return B * (seen * (seen + 1) // 2 + (Sq - seen) * Sk)
+    return B * Sq * Sk
+
+
+def work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True
+         ) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one call: q.k and p.v, a multiply-add each, over
+    the (query, key) pairs the mask lets through (the kernel skipping tiles
+    above the diagonal); q, k and v read once, the output (q's size) and
+    the fp32 lse written once."""
+    B, Sq, Hq, D = q.shape
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() + B * Hq * Sq * 4
-    return 4 * pairs * Hq * D, nbytes
+    return 4 * _pairs(q, k, causal) * Hq * D, nbytes
+
+
+def work_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True
+             ) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one gradient call: the five products of the rule
+    (S = q.k, dP = dout.v, dq, dk and dv), a multiply-add each, over the
+    pairs `work` counts, 2.5 times its FLOPs; q, k, v, out and dout read
+    once, dq, dk and dv written once, the fp32 lse read and delta written
+    once a row."""
+    B, Sq, Hq, D = q.shape
+    nbytes = ((4 * q.numel() + 2 * k.numel() + 2 * v.numel()) * q.element_size()
+              + 2 * B * Hq * Sq * 4)
+    return 10 * _pairs(q, k, causal) * Hq * D, nbytes
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -133,3 +165,89 @@ def _run(q, k, v, causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
 
 #: Times the kernel was launched (never counts the plain version).
 flash_attention.launches = 0
+
+
+# ------------------------------------------------------------- gradient --
+#: Rows of the scratch that the dq kernel writes for the dk/dv kernel, a
+#: (batch, head): Sq rounded up to a multiple of this (``SQ_PAD`` of the
+#: source).
+BWD_SQ_PAD = 128
+
+
+def bwd_kernel_instances(d: int) -> Tuple[str, str]:
+    """The bf16 gradient kernels' instances that a launch at d_head ``d``
+    runs, by the names the build's resources give them."""
+    n = 64 if d <= 64 else 128
+    return f"flash_bwd_dq_wgmma_kernel<{n}>", f"flash_bwd_dkdv_wgmma_kernel<{n}>"
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal: bool = True,
+                              q_chunk: int = 1024, k_chunk: int = 1024
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The same gradient in plain PyTorch: `_flash_bwd_rule` over blocks of
+    ``q_chunk`` queries and ``k_chunk`` keys (a ragged last block is
+    masked); (dq, dk, dv) in q's type."""
+    return _flash_bwd_rule(causal, q_chunk, k_chunk, (q, k, v, out, lse), dout)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                        lse: torch.Tensor, dout: torch.Tensor, causal: bool = True,
+                        q_chunk: int = 1024, k_chunk: int = 1024
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of `flash_attention` (q, k, v, causal) for the output's
+    gradient ``dout``, given its output ``out`` and lse; each in q's type.
+    A CPU (or meta) tensor takes the plain version, over blocks of
+    ``q_chunk`` x ``k_chunk``; a CUDA tensor launches the two kernels (on
+    the current stream, without synchronising) or raises."""
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attention_bwd takes float32 or bfloat16, not {q.dtype}")
+    if any(t.dtype != q.dtype for t in (k, v, out, dout)) or lse.dtype != torch.float32:
+        raise TypeError(f"flash_attention_bwd: q is {q.dtype}, k / v / out / dout are "
+                        f"{k.dtype} / {v.dtype} / {out.dtype} / {dout.dtype}, lse {lse.dtype}")
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention_bwd: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    B, Sq, Hq, D = q.shape
+    Bk, Sk, Hkv, Dk = k.shape
+    if Bk != B or Dk != D or Hkv == 0 or Hq % Hkv or Sk == 0:
+        raise ValueError(f"flash_attention_bwd: q {tuple(q.shape)} does not fit k / v "
+                         f"{tuple(k.shape)}")
+    if out.shape != q.shape or dout.shape != q.shape or lse.shape != (B, Hkv, Hq // Hkv, Sq):
+        raise ValueError(f"flash_attention_bwd: out {tuple(out.shape)}, dout "
+                         f"{tuple(dout.shape)}, lse {tuple(lse.shape)} for q {tuple(q.shape)}")
+    peak = "bfloat16" if q.dtype == torch.bfloat16 else "float32"
+    with kernel_scope("flash_attention_bwd", lambda: work_bwd(q, k, v, causal), peak):
+        if not q.is_cuda:
+            return flash_attention_bwd_plain(q, k, v, out, lse, dout, causal, q_chunk, k_chunk)
+        return _run_bwd(q, k, v, out, lse, dout.contiguous(), causal)
+
+
+def _run_bwd(q, k, v, out, lse, dout, causal: bool):
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    _build.check_head_dim("flash_attention_bwd", D, q.dtype)
+    tensors = (q, k, v, out, lse, dout)
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("flash_attention_bwd: the tensors lie on different devices")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("flash_attention_bwd: q, k, v, out and lse must be contiguous")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("flash_attention_bwd: the tensors must be 16-byte aligned")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    sq_pad = -(-Sq // BWD_SQ_PAD) * BWD_SQ_PAD
+    scratch = torch.empty(2 * B * Hq * sq_pad, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        code = _build.library().repro_flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
+            B, Sq, Sk, Hq, Hkv, D, int(causal), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(code, "flash_attention_bwd")
+    flash_attention_bwd.launches += 2               # the dq and the dk/dv kernel
+    return dq, dk, dv
+
+
+#: Kernel launches, two a call (never counts the plain version).
+flash_attention_bwd.launches = 0

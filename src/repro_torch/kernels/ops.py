@@ -55,6 +55,14 @@ def flash_attention(q, k, v, causal: bool = True):
     return _flash.flash_attention(q, k, v, causal)
 
 
+def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True, q_chunk: int = 1024,
+                        k_chunk: int = 1024):
+    """(dq, dk, dv): see `repro_torch.kernels.flash_attention`."""
+    if _force_plain:
+        return _flash.flash_attention_bwd_plain(q, k, v, out, lse, dout, causal, q_chunk, k_chunk)
+    return _flash.flash_attention_bwd(q, k, v, out, lse, dout, causal, q_chunk, k_chunk)
+
+
 def ssm_scan(x, Bm, Cm, dt, A_log, D, chunk: int = 64):
     """(y, final state): see `repro_torch.kernels.ssm_scan`."""
     if _force_plain:

@@ -252,11 +252,15 @@ _KERNEL_NAMES = {"rms_norm": ("rms_norm_kernel",),
                  "rms_norm_bwd": ("rms_norm_bwd_kernel", "rms_dscale_sum_kernel"),
                  "decode_attention": ("decode_partial_kernel", "decode_bf16_tc_kernel"),
                  "flash_attention": ("flash_fwd_kernel", "flash_fwd_wgmma_kernel"),
+                 "flash_attention_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
+                                         "flash_bwd_dq_wgmma_kernel",
+                                         "flash_bwd_dkdv_wgmma_kernel"),
                  "ssm_scan": ("ssm_scan_kernel", "ssm_scan_wgmma_kernel")}
 
 #: Kernel launches a scope of each wrapper makes on the card where not one:
-#: rms_norm's gradient is the gradient kernel and the dscale sum.
-LAUNCHES_A_SCOPE = {"rms_norm_bwd": 2}
+#: rms_norm's gradient is the gradient kernel and the dscale sum, flash
+#: attention's the dq and the dk/dv kernel.
+LAUNCHES_A_SCOPE = {"rms_norm_bwd": 2, "flash_attention_bwd": 2}
 
 
 def _wrapper_launches() -> Dict[str, int]:
@@ -267,6 +271,7 @@ def _wrapper_launches() -> Dict[str, int]:
             "rms_norm_bwd": rmsnorm.rms_norm_bwd.launches,
             "decode_attention": decode_attention.decode_attention.launches,
             "flash_attention": flash_attention.flash_attention.launches,
+            "flash_attention_bwd": flash_attention.flash_attention_bwd.launches,
             "ssm_scan": ssm_scan.ssm_scan.launches}
 
 

@@ -391,7 +391,9 @@ class _FlashAttention(torch.autograd.Function):
     that a traced program takes the card's route), `_flash_fwd_math` for a
     CPU tensor; both give (out, lse).  Under an active `FlashSaver` the
     forward's (out, lse) are recorded, or replayed in the recomputation.
-    Backward: `_flash_bwd_rule`."""
+    Backward: the `flash_attention_bwd` kernels for a CUDA tensor (and the
+    card's route for a meta one), `_flash_bwd_rule` for a CPU tensor and
+    under `kernels.ops.use_plain()`."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, q_chunk, k_chunk):
@@ -420,7 +422,12 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        dq, dk, dv = _flash_bwd_rule(*ctx.config, ctx.saved_tensors, dout)
+        from repro_torch.kernels import ops as kops
+        causal, q_chunk, k_chunk = ctx.config
+        q, k, v, out, lse = ctx.saved_tensors
+        if q.is_cuda:                  # the kernels take contiguous rows
+            q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        dq, dk, dv = kops.flash_attention_bwd(q, k, v, out, lse, dout, causal, q_chunk, k_chunk)
         return dq, dk, dv, None, None, None
 
 

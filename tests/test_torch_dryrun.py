@@ -96,11 +96,12 @@ def test_a_serving_prefill_traces():
 def test_granite_at_full_depth():
     """granite-3-2b train_4k, all 40 layers, on 256 H100s: the launches a
     step of the card's train phase (161 norms, 81 norm gradients, 80 flash
-    forwards) and the roofline's terms."""
+    forwards, 40 flash gradients) and the roofline's terms."""
     row = dryrun.run_cell("granite-3-2b", "train_4k", verbose=False)
     s, r = row["op_stats"], row["roofline"]
     assert row["status"] == "ok"
-    assert s["scopes"] == {"flash_attention": 80, "rms_norm": 161, "rms_norm_bwd": 81}
+    assert s["scopes"] == {"flash_attention": 80, "flash_attention_bwd": 40, "rms_norm": 161,
+                           "rms_norm_bwd": 81}
     assert s["wire_bytes_by_axis"].keys() == {"data", "model"}
     assert 0 < r["t_memory_kernels_s"] < r["t_memory_s"]
     assert 0 < r["t_step_kernels_s"] < r["t_step_s"]
@@ -253,9 +254,9 @@ def test_remat_dots_recomputes_no_product():
     products = {k: v["flops"] - v["flops_kernel_interior"] for k, v in stats.items()}
     assert products["dots"] == products["none"] < products["block"]
     assert stats["none"]["flops"] < stats["dots"]["flops"] < stats["block"]["flops"]
-    assert stats["dots"]["scopes"] == {"flash_attention": L, "rms_norm": 4 * L + 1,
-                                       "rms_norm_bwd": 2 * L + 1}
-    assert stats["block"]["scopes"] == {"flash_attention": 2 * L, "rms_norm": 4 * L + 1,
-                                        "rms_norm_bwd": 2 * L + 1}
-    assert stats["none"]["scopes"] == {"flash_attention": L, "rms_norm": 2 * L + 1,
-                                       "rms_norm_bwd": 2 * L + 1}
+    assert stats["dots"]["scopes"] == {"flash_attention": L, "flash_attention_bwd": L,
+                                       "rms_norm": 4 * L + 1, "rms_norm_bwd": 2 * L + 1}
+    assert stats["block"]["scopes"] == {"flash_attention": 2 * L, "flash_attention_bwd": L,
+                                        "rms_norm": 4 * L + 1, "rms_norm_bwd": 2 * L + 1}
+    assert stats["none"]["scopes"] == {"flash_attention": L, "flash_attention_bwd": L,
+                                       "rms_norm": 2 * L + 1, "rms_norm_bwd": 2 * L + 1}

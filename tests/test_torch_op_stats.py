@@ -199,22 +199,24 @@ def test_flops_against_the_references_hlo(tmp_path):
     compiled HLO counted by `hlo_stats` against the port's meta trace.
     They part on attention alone.  The reference trains a sequence this
     short through `gqa_reference` (every (query, key) pair, forward and
-    remat forward, and autodiff's 4 products in the backward); the port
-    runs the flash forward over the causal half (a call's work K =
-    F (S + 1) / S, F = 2 B Hq S^2 Dh, one full product) and the ported
-    `_flash_bwd_rule`, whose backward takes 7 full products.  So the port
-    counts L (2 K + 7 F - 8 F) = L F (S + 2) / S more: 3.97 % of the HLO's
-    FLOPs here.  The rest agrees within 0.14 % (measured; allowed 0.2 %)."""
+    remat forward, and autodiff's 4 products in the backward: 8 F a layer,
+    F = 2 B Hq S^2 Dh, one full product); the port runs the flash forward
+    over the causal half (a call's work K = F (S + 1) / S) twice and the
+    flash backward, whose kernels count five products over the same pairs
+    (`work_bwd`, 2.5 K).  So the port counts L (4.5 K - 8 F) = L F (4.5
+    (S + 1) / S - 8) less: about 13.9 % of the HLO's FLOPs here.  The rest
+    agrees within 0.14 % (measured; allowed 0.2 %)."""
     hlo = du.run_jax("jax_hlo_stats", tmp_path / "hlo", mesh_shape=[4, 1])
     port = _fake_trace((4, 1))
     cfg = du.granite_cut("torch")
     B, S = du.LAUNCH_BATCH // 4, du.LAUNCH_SEQ
     F = 2 * B * cfg.n_heads * S * S * cfg.d_head
-    attention_gap = cfg.n_layers * F * (S + 2) / S
+    attention_gap = cfg.n_layers * F * (4.5 * (S + 1) / S - 8)
     gap = port["flops"] - hlo["flops"]
-    assert abs(gap) / hlo["flops"] < 0.05
+    assert -0.145 < attention_gap / hlo["flops"] < -0.135
     assert abs(gap - attention_gap) / hlo["flops"] < 0.002
     assert port["scopes"] == {"flash_attention": 2 * cfg.n_layers,
+                              "flash_attention_bwd": cfg.n_layers,
                               "rms_norm": 4 * cfg.n_layers + 1,
                               "rms_norm_bwd": 2 * cfg.n_layers + 1}
 
@@ -233,6 +235,18 @@ SERVED_LENS = [17, 33, 48, 64, 70, 81, 90, 96]
 FLASH_SHAPES = [(2, 4096, 4096, 32, 8, 64, True), (2, 4096, 4096, 32, 32, 112, True),
                 (2, 4096, 4096, 48, 8, 128, True), (2, 4096, 4096, 12, 2, 128, True),
                 (2, 4096, 2048, 16, 16, 64, False), (2, 2048, 2048, 16, 16, 64, False)]
+
+
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_work_bwd_is_five_products(shape):
+    """The gradient's work: 2.5 times the forward's FLOPs over the same
+    pairs; q, k, v, out, dout read and dq, dk, dv written once, in bf16,
+    the fp32 lse read and delta written once a row."""
+    B, Sq, Sk, Hq, Hkv, D, causal = shape
+    q, kv = _m((B, Sq, Hq, D)), _m((B, Sk, Hkv, D))
+    flops, nbytes = kflash.work_bwd(q, kv, kv, causal)
+    assert 2 * flops == 5 * kflash.work(q, kv, kv, causal)[0]
+    assert nbytes == (4 * q.numel() + 4 * kv.numel()) * 2 + 2 * B * Hq * Sq * 4
 
 
 @pytest.mark.parametrize("shape", NORM_SHAPES)
