@@ -319,10 +319,11 @@ def kernel_wrappers():
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.kernels.rmsnorm import rms_norm, rms_norm_bwd
-    from repro_torch.kernels.ssm_scan import ssm_scan
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd
     return {"rms_norm": rms_norm, "rms_norm_bwd": rms_norm_bwd,
             "decode_attention": decode_attention, "flash_attention": flash_attention,
-            "flash_attention_bwd": flash_attention_bwd, "ssm_scan": ssm_scan}
+            "flash_attention_bwd": flash_attention_bwd, "ssm_scan": ssm_scan,
+            "ssm_scan_bwd": ssm_scan_bwd}
 
 
 def zero_counts():
@@ -368,8 +369,10 @@ def launches_per_step(cfg, train, prefill=False):
     nor the final norms.  A train step's backward takes each norm of the
     forward once (a recomputed norm's backward is its first run's): two
     launches of `rms_norm_bwd` a norm, the gradient kernel and the dscale
-    sum; and each flash attention of the forward once: two launches of
-    `flash_attention_bwd`, the dq and the dk/dv kernel."""
+    sum; each flash attention of the forward once: two launches of
+    `flash_attention_bwd`, the dq and the dk/dv kernel; and each scan of the
+    forward once: three launches of `ssm_scan_bwd`, the state chains, the
+    chunks and the sums."""
     kinds = cfg.layer_pattern()
     every = cfg.shared_attn_every            # an MoE layer attends as a dense one does
     shared = [i for i in range(len(kinds)) if every and i % every == 0]
@@ -385,11 +388,13 @@ def launches_per_step(cfg, train, prefill=False):
     fwd = count(kinds, shared, 1)
     if not train and not prefill:
         return {"rms_norm": fwd["rms_norm"], "rms_norm_bwd": 0, "decode_attention": fwd["attn"],
-                "flash_attention": 0, "flash_attention_bwd": 0, "ssm_scan": 0}
+                "flash_attention": 0, "flash_attention_bwd": 0, "ssm_scan": 0,
+                "ssm_scan_bwd": 0}
     fwd_norms = fwd["rms_norm"] + 2 * encoder + cross
     if prefill:
         return {"rms_norm": fwd_norms, "rms_norm_bwd": 0, "decode_attention": 0,
-                "flash_attention": encoder, "flash_attention_bwd": 0, "ssm_scan": 0}
+                "flash_attention": encoder, "flash_attention_bwd": 0, "ssm_scan": 0,
+                "ssm_scan_bwd": 0}
     period = stack_period(kinds, every)
     whole = len(kinds) // period * period
     again = count(kinds[:whole], [i for i in shared if i < whole], 0)
@@ -398,7 +403,8 @@ def launches_per_step(cfg, train, prefill=False):
             "flash_attention": (fwd["attn"] + fwd["cross"] + again["attn"] + again["cross"]
                                 + 2 * encoder),
             "flash_attention_bwd": 2 * (fwd["attn"] + fwd["cross"] + encoder),
-            "ssm_scan": fwd["ssm_scan"] + again["ssm_scan"]}
+            "ssm_scan": fwd["ssm_scan"] + again["ssm_scan"],
+            "ssm_scan_bwd": 3 * fwd["ssm_scan"]}
 
 
 # Each main path's launches a step, fixed by hand: granite-3-2b has 40
@@ -413,47 +419,58 @@ def launches_per_step(cfg, train, prefill=False):
 # step both stacks' attentions, the cross-attention too, and again under
 # remat); qwen2-vl-2b 28 attention layers.  A train step's backward
 # launches rms_norm's gradient kernel and its dscale sum once a norm of the
-# forward (not again for remat's), and flash attention's dq and dk/dv
-# kernels once an attention of the forward (granite 40 calls, zamba2 7,
-# dbrx 3, seamless 72, qwen2-vl 28).  `launches_per_step` must give these.
+# forward (not again for remat's), flash attention's dq and dk/dv kernels
+# once an attention of the forward (granite 40 calls, zamba2 7, dbrx 3,
+# seamless 72, qwen2-vl 28), and the scan's three gradient kernels once a
+# Mamba2 layer of the forward (zamba2 39).  `launches_per_step` must give
+# these.
 MAIN_PATH_COUNTS = {
     "serve": dict(rms_norm=81, rms_norm_bwd=0, decode_attention=40, flash_attention=0,
-                  flash_attention_bwd=0, ssm_scan=0),
+                  flash_attention_bwd=0, ssm_scan=0, ssm_scan_bwd=0),
     "train": dict(rms_norm=81 + 80, rms_norm_bwd=2 * 81, decode_attention=0,
-                  flash_attention=40 + 40, flash_attention_bwd=2 * 40, ssm_scan=0),
+                  flash_attention=40 + 40, flash_attention_bwd=2 * 40, ssm_scan=0, ssm_scan_bwd=0),
     "sharded_train": dict(rms_norm=81 + 80, rms_norm_bwd=2 * 81, decode_attention=0,
-                          flash_attention=40 + 40, flash_attention_bwd=2 * 40, ssm_scan=0),
+                          flash_attention=40 + 40, flash_attention_bwd=2 * 40,
+                          ssm_scan=0, ssm_scan_bwd=0),
     "serve_zamba2": dict(rms_norm=191, rms_norm_bwd=0, decode_attention=14, flash_attention=0,
-                         flash_attention_bwd=0, ssm_scan=0),
+                         flash_attention_bwd=0, ssm_scan=0, ssm_scan_bwd=0),
     "train_zamba2": dict(rms_norm=93 + 84, rms_norm_bwd=2 * 93, decode_attention=0,
-                         flash_attention=7 + 6, flash_attention_bwd=2 * 7, ssm_scan=39 + 36),
+                         flash_attention=7 + 6, flash_attention_bwd=2 * 7, ssm_scan=39 + 36,
+                         ssm_scan_bwd=3 * 39),
     "serve_dbrx": dict(rms_norm=17, rms_norm_bwd=0, decode_attention=8, flash_attention=0,
-                       flash_attention_bwd=0, ssm_scan=0),
+                       flash_attention_bwd=0, ssm_scan=0, ssm_scan_bwd=0),
     "train_dbrx": dict(rms_norm=7 + 6, rms_norm_bwd=2 * 7, decode_attention=0,
-                       flash_attention=3 + 3, flash_attention_bwd=2 * 3, ssm_scan=0),
+                       flash_attention=3 + 3, flash_attention_bwd=2 * 3,
+                       ssm_scan=0, ssm_scan_bwd=0),
     "serve_xlstm": dict(rms_norm=97, rms_norm_bwd=0, decode_attention=0, flash_attention=0,
-                        flash_attention_bwd=0, ssm_scan=0),
+                        flash_attention_bwd=0, ssm_scan=0, ssm_scan_bwd=0),
     "train_xlstm": dict(rms_norm=17 + 16, rms_norm_bwd=2 * 17, decode_attention=0,
-                        flash_attention=0, flash_attention_bwd=0, ssm_scan=0),
+                        flash_attention=0, flash_attention_bwd=0, ssm_scan=0, ssm_scan_bwd=0),
     "serve_seamless": dict(rms_norm=73, rms_norm_bwd=0, decode_attention=24,
-                           flash_attention=0, flash_attention_bwd=0, ssm_scan=0),
+                           flash_attention=0, flash_attention_bwd=0, ssm_scan=0, ssm_scan_bwd=0),
     "train_seamless": dict(rms_norm=122 + 120, rms_norm_bwd=2 * 122, decode_attention=0,
-                           flash_attention=72 + 72, flash_attention_bwd=2 * 72, ssm_scan=0),
+                           flash_attention=72 + 72, flash_attention_bwd=2 * 72,
+                           ssm_scan=0, ssm_scan_bwd=0),
     "serve_qwen2vl": dict(rms_norm=57, rms_norm_bwd=0, decode_attention=28, flash_attention=0,
-                          flash_attention_bwd=0, ssm_scan=0),
+                          flash_attention_bwd=0, ssm_scan=0, ssm_scan_bwd=0),
     "train_qwen2vl": dict(rms_norm=57 + 56, rms_norm_bwd=2 * 57, decode_attention=0,
-                          flash_attention=28 + 28, flash_attention_bwd=2 * 28, ssm_scan=0),
+                          flash_attention=28 + 28, flash_attention_bwd=2 * 28,
+                          ssm_scan=0, ssm_scan_bwd=0),
     "relocate_train": dict(rms_norm=5 + 4, rms_norm_bwd=2 * 5, decode_attention=0,
-                           flash_attention=2 + 2, flash_attention_bwd=2 * 2, ssm_scan=0),
+                           flash_attention=2 + 2, flash_attention_bwd=2 * 2,
+                           ssm_scan=0, ssm_scan_bwd=0),
     "live_move": dict(rms_norm=5 + 4, rms_norm_bwd=2 * 5, decode_attention=0,
-                      flash_attention=2 + 2, flash_attention_bwd=2 * 2, ssm_scan=0),
+                      flash_attention=2 + 2, flash_attention_bwd=2 * 2,
+                      ssm_scan=0, ssm_scan_bwd=0),
     "adapt_train": dict(rms_norm=81 + 80, rms_norm_bwd=2 * 81, decode_attention=0,
-                        flash_attention=40 + 40, flash_attention_bwd=2 * 40, ssm_scan=0),
+                        flash_attention=40 + 40, flash_attention_bwd=2 * 40,
+                        ssm_scan=0, ssm_scan_bwd=0),
     "adapt_decode": dict(rms_norm=81, rms_norm_bwd=0, decode_attention=40, flash_attention=0,
-                         flash_attention_bwd=0, ssm_scan=0),
+                         flash_attention_bwd=0, ssm_scan=0, ssm_scan_bwd=0),
     # serve_seamless's prefill, once before its decode steps
     "serve_seamless_prefill": dict(rms_norm=49 + 73, rms_norm_bwd=0, decode_attention=0,
-                                   flash_attention=24, flash_attention_bwd=0, ssm_scan=0),
+                                   flash_attention=24, flash_attention_bwd=0,
+                                   ssm_scan=0, ssm_scan_bwd=0),
 }
 
 
@@ -495,6 +512,7 @@ def phase_device(torch):
 # HGMMA (wgmma, a warpgroup's product) or HMMA (mma.sync, a warp's).
 TENSOR_CORE_KERNELS = {"flash_fwd_wgmma_kernel": "hgmma", "flash_bwd_dq_wgmma_kernel": "hgmma",
                        "flash_bwd_dkdv_wgmma_kernel": "hgmma", "ssm_scan_wgmma_kernel": "hgmma",
+                       "ssm_bwd_state_wgmma_kernel": "hgmma", "ssm_bwd_chunk_wgmma_kernel": "hgmma",
                        "decode_bf16_tc_kernel": "hmma"}
 
 
@@ -1048,23 +1066,26 @@ def check_ssm_f64(torch, checks, case):
 
 
 def check_ssm_grad(torch, checks):
-    """The autograd Function (CUDA forward, plain recompute in the backward)
-    against autograd through the plain scan, fp32: gradients of a weighted
-    sum of y and the final state for all six inputs."""
-    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_plain
+    """The autograd Function (CUDA forward, the gradient kernels in the
+    backward) against autograd through the plain scan, fp32: gradients of
+    a weighted sum of y and the final state for all six inputs; one
+    forward launch and the gradient's three."""
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd, ssm_scan_plain
     case = (2, 256, 4, 64, 16, 64)
     B, S, H, P, N, chunk = case
     base = ssm_inputs(torch, case, torch.float32, 81, "cuda")
     wy = rand(torch, (B, S, H, P), torch.float32, 87, "cuda")
     ws = rand(torch, (B, H, P, N), torch.float32, 88, "cuda")
     grads = []
-    before = ssm_scan.launches
+    before, before_bwd = ssm_scan.launches, ssm_scan_bwd.launches
     for fn in (ssm_scan, ssm_scan_plain):
         leaves = [t.clone().requires_grad_(True) for t in base]
         y, st = fn(*leaves, chunk=chunk)
         grads.append(torch.autograd.grad((y * wy).sum() + (st * ws).sum(), leaves))
     torch.cuda.synchronize()
     require(ssm_scan.launches == before + 1, "ssm_scan backward: the Function did not launch")
+    require(ssm_scan_bwd.launches == before_bwd + 3,
+            "ssm_scan backward: the gradient kernels were not launched")
     worst = 0.0
     for name, g, want in zip(("x", "Bm", "Cm", "dt", "A_log", "D"), *grads):
         err = (g - want).abs()
@@ -1074,7 +1095,134 @@ def check_ssm_grad(torch, checks):
         require(ratio <= 1.0, f"ssm_scan backward: d{name} differs by {float(err.max())}")
     checks.append(dict(kernel="ssm_scan", case="autograd Function vs plain autograd",
                        shape=list(case), dtype="float32", grad_err_over_tol=worst,
+                       launches=dict(ssm_scan=1, ssm_scan_bwd=3),
                        tol="1e-4 of the gradient's largest magnitude + 1e-4 of each element"))
+
+
+# The scan's gradient kernels (`ssm_scan_bwd`) against their plain
+# version, the closed form `ssm_scan_bwd_plain` on the card.  fp32 at
+# GRAD_TOL's rule (1e-4 of each gradient's largest magnitude, at least 1,
+# plus 1e-4 of each element).  bf16: dx, dB and dC, which the kernels write
+# in bf16, within 2^-8 of their largest magnitude plus 2^-6 of the element
+# (their own rounding is 2^-9; the CPU emulation of the kernels' roundings
+# at 0.14-0.18 of it, tests/test_torch_ssm_bwd.py); ddt, dA_log and dD,
+# fp32 sums that cancel, at GRAD_TOL's rule.  (B, S, H, P, N, chunk),
+# strided, with the final state's gradient: small cases; P 12 and N 4 (plain
+# loads); an odd P 7; one chunk; one head (the chains' look-back the whole
+# sequence); 18 chunks (segments of 4, 4, 4, 4 and 2) over two head
+# groups (8 + 4 heads); a rank of (1, 4)'s 28 heads; then zamba2-7b's
+# training shape.
+SSM_BWD_BF16_TOL = dict(max_share=2.0 ** -8, rtol=2.0 ** -6)
+SSM_BWD_CASES = [((1, 128, 2, 16, 8, 32), False, False), ((2, 256, 4, 64, 16, 64), False, True),
+                 ((2, 192, 3, 32, 64, 64), True, True), ((1, 64, 3, 12, 4, 16), False, True),
+                 ((1, 64, 2, 7, 4, 16), False, False), ((1, 64, 3, 16, 8, 64), True, True),
+                 ((1, 512, 1, 64, 64, 64), True, False), ((2, 1152, 12, 64, 64, 64), True, True),
+                 ((1, 1024, 28, 64, 64, 64), True, False)]
+SSM_BWD_NAMES = ("dx", "dB", "dC", "ddt", "dA_log", "dD")
+
+
+def ssm_bwd_errors(torch, got, want, dt):
+    """{gradient: (max abs error, max of error over its allowance)}."""
+    out = {}
+    for i, (name, g, w) in enumerate(zip(SSM_BWD_NAMES, got, want)):
+        g, w = g.float(), w.float()
+        err = (g - w).abs()
+        if dt == "bfloat16" and i < 3:
+            allowed = (SSM_BWD_BF16_TOL["max_share"] * float(w.abs().max())
+                       + SSM_BWD_BF16_TOL["rtol"] * w.abs())
+        else:
+            allowed = (GRAD_TOL["atol"] * max(1.0, float(w.abs().max()))
+                       + GRAD_TOL["rtol"] * w.abs())
+        out[name] = (float(err.max()), float((err / allowed).max()))
+    return out
+
+
+def check_ssm_bwd(torch, checks, case, dt, strided, with_state, control=False):
+    """The gradient kernels against `ssm_scan_bwd_plain` on the same inputs
+    (y's gradient in x's type, the final state's fp32 or absent), and a
+    second call bit for bit.  With ``control``, also the plain gradient of
+    the sequence cut into the state chains' segments (`SEGMENT_CHUNKS`
+    chunks: the carried state and its gradient dropped at every edge),
+    which the same check must refuse."""
+    from repro_torch.kernels.ssm_scan import SEGMENT_CHUNKS, ssm_scan_bwd, ssm_scan_bwd_plain
+    B, S, H, P, N, chunk = case
+    dtype = getattr(torch, dt)
+    args = ssm_inputs(torch, case, dtype, 111, "cuda", strided)
+    dy = rand(torch, (B, S, H, P), dtype, 117, "cuda")
+    ds = rand(torch, (B, H, P, N), torch.float32, 118, "cuda") if with_state else None
+    before = ssm_scan_bwd.launches
+    got = ssm_scan_bwd(*args, dy, ds, chunk)
+    again = ssm_scan_bwd(*args, dy, ds, chunk)
+    torch.cuda.synchronize()
+    require(ssm_scan_bwd.launches == before + 6, f"ssm_scan_bwd {case}: launches")
+    require(all(g.shape == a.shape and g.dtype == a.dtype for g, a in zip(got, args)),
+            f"ssm_scan_bwd {case}: shape/dtype")
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    want = ssm_scan_bwd_plain(*args, dy, ds, chunk)
+    errs = ssm_bwd_errors(torch, got, want, dt)
+    worst = max(r for _, r in errs.values())
+    row = dict(kernel="ssm_scan_bwd", shape=list(case), dtype=dt, strided=strided,
+               final_state_grad=with_state, err_over_tol=worst,
+               errors={k: dict(max_abs_err=e, err_over_tol=r) for k, (e, r) in errs.items()},
+               tol=dict(bf16_dx_dB_dC=SSM_BWD_BF16_TOL, fp32=GRAD_TOL), bit_for_bit_twice=same)
+    checks.append(row)
+    require(worst <= 1.0, f"ssm_scan_bwd {case} {dt}: {errs}")
+    require(same, f"ssm_scan_bwd {case} {dt}: two calls differ")
+    if control:
+        span = SEGMENT_CHUNKS * chunk
+        cut = lambda t: t.reshape(B * (S // span), span, *t.shape[2:])
+        x, Bm, Cm, dtt, A_log, D = args
+        wrong = ssm_scan_bwd_plain(cut(x), cut(Bm), cut(Cm), cut(dtt), A_log, D, cut(dy), None,
+                                   chunk)
+        wrong = [t.reshape(g.shape) for t, g in zip(wrong, got)]
+        c_worst = max(r for _, r in ssm_bwd_errors(torch, wrong, want, dt).values())
+        row["control_state_dropped_each_segment"] = dict(positions=span, err_over_tol=c_worst)
+        require(c_worst > 1.0, f"ssm_scan_bwd {case}: the check passes a gradient that drops "
+                               "the state and its gradient each segment")
+    del got, again, want
+    return worst
+
+
+# The bf16 gradient against float64 (`ssm_scan_bwd_plain` evaluated in
+# float64 on the same inputs): the mean |g - g64| of dx, dB and dC at most
+# SSM_F64_LIMIT times that of the plain fp32 gradient rounded once to bf16.
+# In the CPU emulation the split puts it at 1.00, w rounded once at
+# 1.4-1.6 (tests/test_torch_ssm_bwd.py).  The control: float64 autograd
+# through `ssm_scan_f64` with W cut to bf16 (its gradient cut too), rounded
+# once to bf16.  ddt, dA_log and dD, fp32, are reported against the plain
+# fp32 gradient's own distance, not gated: the per-call check holds them.
+SSM_BWD_F64_CASE = (1, 2048, 16, 64, 64, 64)
+
+
+def check_ssm_bwd_f64(torch, checks, case=SSM_BWD_F64_CASE):
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd, ssm_scan_bwd_plain
+    B, S, H, P, N, chunk = case
+    args = ssm_inputs(torch, case, torch.bfloat16, 121, "cuda", strided=True)
+    dy = rand(torch, (B, S, H, P), torch.bfloat16, 127, "cuda")
+    got = ssm_scan_bwd(*args, dy, None, chunk)
+    g64 = ssm_scan_bwd_plain(*args, dy, None, chunk, compute=torch.float64)
+    plain = ssm_scan_bwd_plain(*args, dy, None, chunk)
+    leaves = [t.detach().to(torch.float64).requires_grad_(True) for t in args]
+    y, _ = ssm_scan_f64(torch, *leaves, chunk, cut_w=True)
+    cut = [t.to(g.dtype) for t, g in
+           zip(torch.autograd.grad(y, leaves, dy.to(torch.float64)), plain)]
+    mean = lambda g, w: float((g.double() - w).abs().mean())
+    row = dict(kernel="ssm_scan_bwd", case="mean error against float64", shape=list(case),
+               dtype="bfloat16", strided=True, limit=SSM_F64_LIMIT, gradients={})
+    for i, name in enumerate(SSM_BWD_NAMES):
+        once = mean(plain[i], g64[i])
+        row["gradients"][name] = dict(kernel=mean(got[i], g64[i]), plain_fp32=once,
+                                      ratio=mean(got[i], g64[i]) / once,
+                                      control_w_cut=mean(cut[i], g64[i]) / once,
+                                      gated=i < 3)
+    checks.append(row)
+    gates = [row["gradients"][n] for n in SSM_BWD_NAMES[:3]]
+    require(all(g["ratio"] <= SSM_F64_LIMIT for g in gates),
+            f"ssm_scan_bwd: mean error against float64 {row['gradients']}")
+    require(any(g["control_w_cut"] > SSM_F64_LIMIT for g in gates),
+            "ssm_scan_bwd: the float64 check passes W cut to bf16")
+    del got, g64, plain, cut, y, leaves
+    torch.cuda.empty_cache()
 
 
 def exact_decode(torch, q, k, v, lens):
@@ -1185,7 +1333,7 @@ def phase_kernels(torch, device):
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.kernels.rmsnorm import rms_norm, rms_norm_bwd, rms_norm_plain
-    from repro_torch.kernels.ssm_scan import ssm_scan
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_bwd
 
     checks = []
     for shape, dt in RMS_CASES:
@@ -1265,6 +1413,13 @@ def phase_kernels(torch, device):
     check_ssm_decay(torch, checks)
     check_ssm_decay(torch, checks, "bfloat16", S=512)
     check_ssm_grad(torch, checks)
+    for case, strided, with_state in SSM_BWD_CASES:
+        for dt in ("float32", "bfloat16"):
+            check_ssm_bwd(torch, checks, case, dt, strided, with_state)
+    check_ssm_bwd(torch, checks, (1, 1024, 4, 64, 64, 64), "float32", True, True, control=True)
+    check_ssm_bwd(torch, checks, SSM_TRAIN, "bfloat16", True, False, control=True)
+    torch.cuda.empty_cache()
+    check_ssm_bwd_f64(torch, checks)
 
     # What the wrappers refuse.
     for bad in (lambda: rms_norm(q.half(), q.half()[0, 0, 0], 1e-5),
@@ -1288,7 +1443,11 @@ def phase_kernels(torch, device):
                 lambda: ssm_scan(*ssm_inputs(torch, (1, 96, 2, 72, 8, 32), torch.float32, 3,
                                              device), chunk=32),                   # P 72
                 lambda: ssm_scan(*ssm_inputs(torch, (1, 96, 2, 16, 8, 32), torch.float16, 3,
-                                             device), chunk=32)):
+                                             device), chunk=32),
+                lambda: ssm_scan_bwd(*ssm_inputs(torch, (1, 96, 2, 16, 8, 32), torch.float32, 3,
+                                                 device),
+                                     torch.zeros((1, 96, 2, 16), device=device),
+                                     torch.zeros((1, 2, 16, 4), device=device), 32)):  # N
         try:
             bad()
         except (TypeError, ValueError):
@@ -2260,6 +2419,20 @@ def phase_timing(torch, device, launches, resources):
                     replaces="src/repro/kernels/ssm_scan.py:66",
                     launches=sum(counts.values()), launches_by_path=counts,
                     library="none: no single PyTorch call computes the scan", **rows))
+    torch.cuda.empty_cache()
+
+    counts = by_path("ssm_scan_bwd")
+    with SmiSampler() as smi:
+        rows = ssm_bwd_times(torch, timer, device, SSM_TRAIN, resources, smi)
+    out.append(dict(name="ssm_scan_bwd", route="cuda",
+                    source="src/repro_torch/csrc/ssm_scan_bwd.cu",
+                    replaces="src/repro/models/ssm.py:65",
+                    replaces_note="no Pallas backward: jax.grad of the reference's jnp "
+                                  "ssd_chunked, the function of "
+                                  "src/repro/kernels/ssm_scan.py:66",
+                    launches=sum(counts.values()), launches_by_path=counts,
+                    library="none: no single PyTorch call computes the scan's gradient",
+                    **rows))
     return out
 
 
@@ -2724,6 +2897,45 @@ def ssm_times(torch, timer, device, case, resources, smi):
                 achieved_tflops=flops / (ms * 1e-3) / 1e12,
                 shape=list(case), dtype=dt, strided=True, readings=t,
                 **instance(resources, KERNEL))
+
+
+def ssm_bwd_times(torch, timer, device, case, resources, smi):
+    """ssm_scan's gradient at the train_zamba2 phase's shape, bf16, x, B and
+    C strided as `mamba2_block` hands them, no final-state gradient (as in
+    training), held against the plain version first.  The three kernels
+    are timed `TIMING_REPEATS` times (median and spread of the device ms
+    and of the host loop's), with the card's clock, power and temperature
+    during each reading (``smi``); the plain version once; the bound from
+    `work_bwd`.  No single PyTorch call computes the gradient."""
+    from repro_torch.kernels.ssm_scan import (BWD_KERNELS, ssm_scan_bwd, ssm_scan_bwd_plain,
+                                              work_bwd)
+    dt = "bfloat16"
+    B, S, H, P, N, L = case
+    args = ssm_inputs(torch, case, torch.bfloat16, 131, device, strided=True)
+    dy = rand(torch, (B, S, H, P), torch.bfloat16, 137, device)
+    errs = ssm_bwd_errors(torch, ssm_scan_bwd(*args, dy, None, L),
+                          ssm_scan_bwd_plain(*args, dy, None, L), dt)
+    worst = max(r for _, r in errs.values())
+    require(worst <= 1.0, f"timing: ssm_scan_bwd error beyond tolerance {errs}")
+    torch.cuda.empty_cache()
+    # The plain gradient's loops over the chunks queue more launches than
+    # DeviceTimer's busy queue leaves room for: CUDA events around three
+    # calls (the card, not the host, sets a call's 10-20 ms).
+    plain = time_ms(torch, lambda: ssm_scan_bwd_plain(*args, dy, None, L), iters=3, warmup=1)
+    t = repeated(timer, {"kernel": (lambda: ssm_scan_bwd(*args, dy, None, L), 20)},
+                 smi)["kernel"]
+    ms = t["ms"]
+    flops, nbytes = work_bwd(*args, chunk=L)
+    b_ms, b_by = bound(nbytes, flops, dt)
+    return dict(max_abs_err=max(e for e, _ in errs.values()), err_over_tol=worst,
+                tol=dict(bf16_dx_dB_dC=SSM_BWD_BF16_TOL, fp32=GRAD_TOL), ms=ms,
+                ms_spread=t["ms_spread"], plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                bound_share=b_ms / ms, library_ms=None, call_ms=t["call_ms"],
+                call_ms_spread=t["call_ms_spread"], library_call_ms=None, bytes=nbytes,
+                flops=flops, achieved_gb_per_s=nbytes / (ms * 1e-3) / 1e9,
+                achieved_tflops=flops / (ms * 1e-3) / 1e12,
+                shape=list(case), dtype=dt, strided=True, readings=t,
+                kernels={name: resources.get(name, {}) for name in BWD_KERNELS})
 
 
 def run_engine_steps(torch, cfg, params, device, n_steps, requests, **kw):

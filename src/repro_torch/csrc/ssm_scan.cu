@@ -55,8 +55,11 @@
 //     each chunk's y from the true start state.  Blocks take their segment
 //     from an atomic ticket in the order (segment, head), so a block waits
 //     only on blocks that started before it, and every wait ends in a trap
-//     after a bounded number of polls instead of hanging the card.  One
-//     launch; sweep 2 re-reads its segment, from L2.
+//     after a bounded number of polls instead of hanging the card.  The
+//     call's last block to finish sets the ticket, the flags and its count
+//     of finished blocks back to zero, so the wrapper keeps the counters
+//     from call to call and launches no zeroing.  One launch; sweep 2
+//     re-reads its segment, from L2.
 //   * The products on wgmma, from TMA loads.  A chunk is 64 rows, one
 //     warpgroup's M: a block is one warpgroup, three blocks an SM (168
 //     registers a thread, 72 KB of shared memory).  x (as a 4-D map over
@@ -843,6 +846,19 @@ ssm_scan_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
       chunk_y<false>(s, in);   // the segment's last chunk: no state to carry on
     __syncthreads();   // every thread is done with the stage and the state's tiles
   }
+
+  // The call's last block leaves the counters zero for the next call.  B * H
+  // is read from the parameters here (opaque): a register holding it from
+  // the top of the kernel made ptxas spill 36 bytes and the kernel 3 %
+  // slower (H100).
+  if (threadIdx.x == 0) {
+    const int bhs = (int)(repro::opaque((uint32_t)B) * repro::opaque((uint32_t)H));
+    __threadfence();
+    if (atomicAdd(sync + 1 + bhs, 1) == (int)gridDim.x - 1) {
+      for (int e = 0; e < 2 + bhs; ++e) sync[e] = 0;
+      __threadfence();
+    }
+  }
 }
 
 // The map of a bf16 matrix read in boxes of 64 columns x `rows` rows,
@@ -922,7 +938,9 @@ int launch_bf16(const void* x, const void* bm, const void* cm, const void* dt,
 // P) contiguous in x's type; state: (B, H, P, N) fp32.  Strides count
 // elements.  chunk, P and N in [1, 64]; S a multiple of chunk.  bf16 also
 // takes the look-back's scratch: carry, fp32, two 64 x 64 states a (b, h)
-// (unused where the sequence is one segment); sync, 1 + B * H ints, zero.
+// (unused where the sequence is one segment); sync, 2 + B * H ints (a
+// ticket counter, each (b, h)'s flag, a count of finished blocks), zero, and
+// left zero by the call's last block.
 extern "C" int repro_ssm_scan(const void* x, const void* bm, const void* cm, const void* dt,
                               const void* a_log, const void* d, void* y, void* state,
                               void* carry, void* sync, int B, int S, int H, int P, int N,

@@ -226,6 +226,10 @@ SIGNATURES = {
     # x, Bm, Cm, dt, A_log, D, y, state, carry, sync, B, S, H, P, N, chunk,
     # x / Bm / Cm batch and sequence strides (elements), is_bf16, stream
     "repro_ssm_scan": [_PTR] * 10 + [_INT] * 6 + [_I64] * 6 + [_INT, _PTR],
+    # x, Bm, Cm, dt, A_log, D, dy, dstate, dx, dBm, dCm, ddt, dA_log, dD, states,
+    # parts, sync, B, S, H, P, N, chunk, x / Bm / Cm batch and sequence strides
+    # (elements), is_bf16, stream
+    "repro_ssm_scan_bwd": [_PTR] * 17 + [_INT] * 6 + [_I64] * 6 + [_INT, _PTR],
 }
 
 

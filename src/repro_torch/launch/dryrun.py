@@ -255,12 +255,16 @@ _KERNEL_NAMES = {"rms_norm": ("rms_norm_kernel",),
                  "flash_attention_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
                                          "flash_bwd_dq_wgmma_kernel",
                                          "flash_bwd_dkdv_wgmma_kernel"),
-                 "ssm_scan": ("ssm_scan_kernel", "ssm_scan_wgmma_kernel")}
+                 "ssm_scan": ("ssm_scan_kernel", "ssm_scan_wgmma_kernel"),
+                 "ssm_scan_bwd": ("ssm_bwd_state_kernel", "ssm_bwd_chunk_kernel",
+                                  "ssm_bwd_state_wgmma_kernel", "ssm_bwd_chunk_wgmma_kernel",
+                                  "ssm_bwd_sum_kernel")}
 
 #: Kernel launches a scope of each wrapper makes on the card where not one:
 #: rms_norm's gradient is the gradient kernel and the dscale sum, flash
-#: attention's the dq and the dk/dv kernel.
-LAUNCHES_A_SCOPE = {"rms_norm_bwd": 2, "flash_attention_bwd": 2}
+#: attention's the dq and the dk/dv kernel, the scan's the state chains,
+#: the chunks and the sums.
+LAUNCHES_A_SCOPE = {"rms_norm_bwd": 2, "flash_attention_bwd": 2, "ssm_scan_bwd": 3}
 
 
 def _wrapper_launches() -> Dict[str, int]:
@@ -272,7 +276,8 @@ def _wrapper_launches() -> Dict[str, int]:
             "decode_attention": decode_attention.decode_attention.launches,
             "flash_attention": flash_attention.flash_attention.launches,
             "flash_attention_bwd": flash_attention.flash_attention_bwd.launches,
-            "ssm_scan": ssm_scan.ssm_scan.launches}
+            "ssm_scan": ssm_scan.ssm_scan.launches,
+            "ssm_scan_bwd": ssm_scan.ssm_scan_bwd.launches}
 
 
 #: The CUDA runtime's calls that put work on the card, as the profiler

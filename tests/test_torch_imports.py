@@ -134,7 +134,7 @@ def test_no_source_calls_a_library_kernel_or_compiler():
 def test_build_plan_needs_no_nvcc(tmp_path, monkeypatch):
     names = [p.name for p in _build.sources()]
     assert names == ["decode_attention.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-                     "rmsnorm.cu", "ssm_scan.cu"]
+                     "rmsnorm.cu", "ssm_scan.cu", "ssm_scan_bwd.cu"]
     assert [p.name for p in _build.headers()] == ["common.cuh", "hopper.cuh", "mma.cuh"]
     cmd = _build.compile_command(_build.sources()[0], tmp_path / "x.o")
     assert cmd[0] == "nvcc" and "arch=compute_90a,code=sm_90a" in cmd and "-c" in cmd
@@ -148,11 +148,13 @@ def test_build_plan_needs_no_nvcc(tmp_path, monkeypatch):
                                       "repro_rms_norm_sumsq", "repro_rms_norm_bwd",
                                       "repro_rms_dscale_sum", "repro_empty",
                                       "repro_decode_attention", "repro_flash_attention",
-                                      "repro_flash_attention_bwd", "repro_ssm_scan"}
+                                      "repro_flash_attention_bwd", "repro_ssm_scan",
+                                      "repro_ssm_scan_bwd"}
     assert len(_build.SIGNATURES["repro_decode_attention"]) == 19
     assert len(_build.SIGNATURES["repro_flash_attention"]) == 14
     assert len(_build.SIGNATURES["repro_flash_attention_bwd"]) == 19
     assert len(_build.SIGNATURES["repro_ssm_scan"]) == 24
+    assert len(_build.SIGNATURES["repro_ssm_scan_bwd"]) == 31
 
 
 def test_source_hash_follows_the_sources(tmp_path, monkeypatch):

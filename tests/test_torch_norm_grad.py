@@ -167,7 +167,8 @@ def test_the_kernel_names_hold_no_other_wrappers():
         for k in kernels:
             assert re.search(r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+" + k + r"\(",
                              text), k
-    assert dryrun.LAUNCHES_A_SCOPE == {"rms_norm_bwd": 2, "flash_attention_bwd": 2}
+    assert dryrun.LAUNCHES_A_SCOPE == {"rms_norm_bwd": 2, "flash_attention_bwd": 2,
+                                       "ssm_scan_bwd": 3}
     assert set(dryrun._wrapper_launches()) == set(names)
 
 

@@ -141,7 +141,7 @@ def main():
         def call():
             y = torch.empty((B, S, H, P), dtype=x.dtype, device=dev)
             st = torch.empty((B, H, P, N), dtype=torch.float32, device=dev)
-            sync = torch.zeros((1 + B * H,), dtype=torch.int32, device=dev)
+            sync = torch.zeros((2 + B * H,), dtype=torch.int32, device=dev)
             code = fn(x.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), dt.data_ptr(),
                       A_log.data_ptr(), D.data_ptr(), y.data_ptr(), st.data_ptr(),
                       carry.data_ptr(), sync.data_ptr(), B, S, H, P, N, chunk, x.stride(0),
