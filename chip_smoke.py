@@ -509,7 +509,10 @@ def phase_device(torch):
 
 
 # The tensor-core instances, each with the instruction its SASS must hold:
-# HGMMA (wgmma, a warpgroup's product) or HMMA (mma.sync, a warp's).
+# HGMMA (wgmma, a warpgroup's product) or HMMA (mma.sync, a warp's).  Of
+# these, the flash gradient's may not spill either (a spill there moved
+# its dk/dv pass by 65 % on the card).
+NO_SPILL_KERNELS = ("flash_bwd_dq_wgmma_kernel", "flash_bwd_dkdv_wgmma_kernel")
 TENSOR_CORE_KERNELS = {"flash_fwd_wgmma_kernel": "hgmma", "flash_bwd_dq_wgmma_kernel": "hgmma",
                        "flash_bwd_dkdv_wgmma_kernel": "hgmma", "ssm_scan_wgmma_kernel": "hgmma",
                        "ssm_bwd_state_wgmma_kernel": "hgmma", "ssm_bwd_chunk_wgmma_kernel": "hgmma",
@@ -519,8 +522,9 @@ TENSOR_CORE_KERNELS = {"flash_fwd_wgmma_kernel": "hgmma", "flash_bwd_dq_wgmma_ke
 def phase_build(verbose):
     """Builds the library; prints each kernel instance's registers, spill
     bytes (ptxas) and tensor-core instructions (HMMA and HGMMA in its SASS),
-    and fails if a tensor-core instance holds none of its kind, or if ptxas
-    serialized its wgmma.  Returns those resources."""
+    and fails if a tensor-core instance holds none of its kind, if ptxas
+    serialized its wgmma, or if one of `NO_SPILL_KERNELS` spills.  Returns
+    those resources."""
     from repro_torch.kernels import _build
     built_now = not _build.library_path().exists()
     t0 = time.perf_counter()
@@ -538,6 +542,8 @@ def phase_build(verbose):
                 f"build: {name} holds no {opcode.upper()} instruction: {found}")
         require(not any(r.get("wgmma_serialized") for r in found.values()),
                 f"build: ptxas serialized {name}'s wgmma: {found}")
+        spills = any(r.get("spill_bytes") for r in found.values())
+        require(name not in NO_SPILL_KERNELS or not spills, f"build: {name} spills: {found}")
     return resources
 
 
@@ -820,12 +826,14 @@ def check_flash(torch, checks, case, causal, dt, control=False):
 
 
 # flash_attention's gradient kernels: the bf16 allowance (each of dq, dk, dv
-# within 2^-8 of its largest magnitude plus 2^-6 of the element: P rounded
-# once to bf16 and dS split into hi + lo put the CPU emulation at 0.06-0.39
-# of it, a dropped key tile at 2.3 times it and more;
-# tests/test_torch_flash_bwd.py); fp32 at GRAD_TOL.  (name, B, Sq, Sk, Hq, Hkv, D, causal): small ragged shapes,
-# then each training path's G and d_head at 1000 rows, then two full
-# training shapes.
+# within 2^-8 of its largest magnitude plus 2^-6 of the element: P and dS
+# rounded once to bf16 for dv and dq, dS split into hi + lo for dk, put the
+# CPU emulation well inside it, a dropped key tile at 2.3 times it and more;
+# tests/test_torch_flash_bwd.py); fp32 at GRAD_TOL.  (name, B, Sq, Sk, Hq,
+# Hkv, D, causal): small ragged shapes, then each training path's G and
+# d_head at 1000 rows (whose dk/dv key blocks the kernel cuts into pieces
+# under its cap of 16 tiles), then three full training shapes (qwen2-vl-2b's
+# 128 key blocks cut into 576 pieces).
 BWD_BF16_TOL = dict(max_share=2.0 ** -8, rtol=2.0 ** -6)
 FLASH_BWD_CASES = [
     ("ragged-g4-d64", 2, 300, 300, 8, 2, 64, True), ("sq<sk-g4-d64", 2, 77, 300, 8, 2, 64, False),
@@ -837,7 +845,8 @@ FLASH_BWD_CASES = [
     ("g8-d96", 1, 333, 333, 8, 1, 96, True),
 ]
 FLASH_BWD_TRAIN = [("granite-3-2b train",) + FLASH_TRAIN[1:] + (True,),
-                   ("zamba2-7b train",) + FLASH_ZAMBA[1:] + (True,)]
+                   ("zamba2-7b train",) + FLASH_ZAMBA[1:] + (True,),
+                   ("qwen2-vl-2b train",) + FLASH_QWEN2VL[1:] + (True,)]
 
 
 def bwd_errors(torch, got, want, dt):
@@ -2816,12 +2825,14 @@ def flash_bwd_times(torch, timer, device, case, resources, smi, causal=True):
     `TIMING_REPEATS` times in turn (median and spread of the device ms and
     of the host loop's), with the card's clock, power and temperature
     during each reading (``smi``); the plain version once, by `time_ms`.
-    ``library_ratio`` is kernel / SDPA, ``bound_share`` bound / kernel; the
-    build's registers, spills and HGMMA counts of the two instances that
-    run at this d_head."""
+    ``library_ratio`` is kernel / SDPA, ``bound_share`` bound / kernel,
+    ``sm_mhz`` the SM clock of each kernel reading; ``dkdv_items`` the dk/dv
+    kernel's piece cap, items and cut items a (kv head, batch); the build's
+    registers, spills and HGMMA counts of the two instances that run at this
+    d_head."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (bwd_kernel_instances, flash_attention,
-                                                     flash_attention_bwd,
+    from repro_torch.kernels.flash_attention import (_dkdv_plan, bwd_kernel_instances,
+                                                     flash_attention, flash_attention_bwd,
                                                      flash_attention_bwd_plain, work_bwd)
     dtype, dt = torch.bfloat16, "bfloat16"
     _, B, Sq, Sk, Hq, Hkv, D = case
@@ -2857,10 +2868,13 @@ def flash_bwd_times(torch, timer, device, case, resources, smi, causal=True):
                 bound_by=b_by, bound_share=b_ms / ms, library_ms=lib.get("ms"),
                 library_ms_spread=lib.get("ms_spread"), library_backend=backend,
                 library_ratio=ms / lib["ms"] if lib else None,
+                sm_mhz=[r["sm_mhz"] for r in t["kernel"]["runs"]],
                 call_ms=t["kernel"]["call_ms"], call_ms_spread=t["kernel"]["call_ms_spread"],
                 library_call_ms=lib.get("call_ms"), bytes=nbytes,
                 flops=flops, achieved_tflops=flops / (ms * 1e-3) / 1e12,
                 shape=[B, Sq, Sk, Hq, Hkv, D], dtype=dt, causal=causal, readings=t,
+                dkdv_items=dict(zip(("cap", "items", "cut"), _dkdv_plan(
+                    B, Sq, Sk, Hkv, Hq // Hkv, causal, device.index or 0))),
                 dq_kernel=instance(resources, dq_name),
                 dkdv_kernel=instance(resources, dkdv_name))
 

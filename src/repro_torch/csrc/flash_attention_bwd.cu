@@ -17,16 +17,16 @@
 // forward `repro.kernels.flash_attention.flash_attention`; the TPU runs
 // that rule as XLA ops, the port ran its plain PyTorch copy.
 //
-// Two passes, two kernels, as the rule has them, and no atomics: each
-// gradient element is summed by one thread in a fixed order, so two calls
-// give the same bits (a sharded step on a (1, 1) mesh is held bit for bit
-// against the unsharded one).
+// Two passes, two kernels, and no unordered atomics: each gradient element
+// is summed in a fixed order, so two calls give the same bits (a sharded
+// step on a (1, 1) mesh is held bit for bit against the unsharded one).
 //   * dq (`flash_bwd_dq_*`): a block per (query tile, query head) walks the
 //     key tiles; it first computes its rows' delta from out and dout, and
 //     writes delta and the lse (in the units the second kernel reads) into
 //     a scratch of (B, Hq, Sq_pad) rows, Sq_pad = Sq rounded up to 128.
-//   * dk/dv (`flash_bwd_dkdv_*`): a block per (key tile, kv head) walks the
-//     query tiles of every query head of the group, in a fixed order.
+//   * dk/dv (`flash_bwd_dkdv_*`): fp32 a block per (key tile, kv head)
+//     walks the query tiles of every query head of the group.  bf16 a
+//     block is a piece of that walk (below).
 // Under causality tiles wholly above the diagonal are not visited.  No
 // divisibility is asked: ragged tiles are masked, rows past Sq read an lse
 // that makes P 0, and rows and columns past the tensors are not stored.
@@ -34,45 +34,76 @@
 // Bound, at granite-3-2b's training shape (B 2, S 4096, Hq 32, Hkv 8, D 64,
 // bf16, causal): by operations, five products over the visible pairs,
 // 10 * pairs * Hq * D = 3.44e11 FLOPs (0.3475 ms at the bf16 tensor-core
-// peak), against about 170 MB moved (0.051 ms).  The two passes recompute
-// S and dP each, and dS is split into bf16 hi + lo (below), so the bf16
-// kernels do 9 products where the bound counts 5, and can reach at most 5/9
-// (56 %) of it (without the split 7, 71 %).
+// peak), against about 170 MB moved (0.051 ms).  The bf16 kernels do 8
+// products where the bound counts 5 (S and dP in both passes; dS split in
+// two for dK), so they can reach at most 5/8 of it.
 //
-// bf16 (`*_wgmma_kernel`), for Hopper: three warpgroups a block, as the
-// forward has.  The first (registers lowered to 24) issues TMA loads from one
-// thread: the block's own tiles once, then the streamed tiles into a ring of
-// 4 stages, each stage with a full and an empty mbarrier.  The other two
-// (registers raised to 240) each own 64 rows of the block's tile and
-// compute on wgmma:
-//   * dq: 128 query rows a block (Q and dO kept), K and V streamed in tiles
-//     of 64 keys.  S = Q K^T and dP = dO V^T from shared memory (K-major, in
-//     TMA's 128-byte swizzle), dS in registers in the A-operand layout, and
+// bf16 (`*_wgmma_kernel`), for Hopper: a producer warpgroup (registers
+// lowered to 24) issues TMA loads from one thread, the block's own tiles
+// once and the streamed tiles into a ring of 4 stages, each with a full and
+// an empty mbarrier; consumer warpgroups, 64 rows of the block's tile each,
+// compute on wgmma.
+//   * dq: at D 64 three consumers (192 query rows a block, 160 registers
+//     each), at D 128 two (128 rows, 240 registers); K and V streamed in
+//     tiles of 64 keys.  S = Q K^T and dP = dO V^T from shared memory
+//     (K-major, TMA's 128-byte swizzle), dS in registers as the A operand,
 //     dQ += dS K with K read MN-major through wgmma's transpose.
-//   * dk/dv: 128 keys a block (K and V kept), Q and dO streamed in tiles of
-//     64 queries with the tile's lse and delta (1-D bulk copies from the
-//     scratch).  S^T = K Q^T and dP^T = V dO^T from shared memory, then
-//     dV += P^T dO and dK += dS^T Q with P^T and dS^T from registers and
-//     dO and Q read MN-major.  At D 128 the dK and dV accumulators take 128
-//     of a consumer thread's registers, S^T and dP^T 64 more.
-// Each consumer issues a tile's first products, waits, computes P and dS,
-// issues the second products and waits again; the two consumers overlap
-// each other only as the tensor cores interleave them.  Tried on an H100
-// and not kept: turns between the consumers on named barriers (no change),
-// and issuing tile j + 1's S and dP with tile j's second products (dq at D
-// 128 10 % faster and dk/dv at D 64 5 %, but dk/dv at D 128 spilled 224
-// bytes and ran 65 % slower).
-// P is rounded once to bf16 as the A operand of dV += P^T dO, as
-// FlashAttention-2 and -3 do.  dS is split into bf16 hi + lo, two products
-// each for dQ and dK (about 16 of its bits kept): rounded once, as those
-// do, it passed every per-call check but moved qwen2-vl's bf16 step-1 loss
-// 1.06e-3 from fp32's (the plain rule's 0.20e-3, the check's limit 1e-3,
-// train_vs_fp32_qwen2vl on an H100): a K projection's bias has a gradient,
-// sum_j dk_j, that rows of dS summing to zero nearly cancel, and a rounded
-// dS does not sum to zero.  Every sum is fp32.  Scores are
-// scaled into log2 units (exp2), the lse by log2(e) once a row.  D 64 and
-// 128 are the instances; any other multiple of 8 up to 128 runs the one
-// above it (zamba2-7b's 112 the 128 instance) with zero columns.
+//   * dk/dv: two consumers, 64 of a key block's 128 keys each (K and V
+//     kept); Q and dO streamed in tiles of 64 queries with the tile's lse
+//     and delta (1-D bulk copies from the scratch).  S^T = K Q^T and dP^T =
+//     V dO^T from shared memory, then dV += P^T dO and dK += dS^T Q from
+//     registers, dO and Q read MN-major.
+// Rounding.  P is rounded once to bf16 for dV, and dS once for dQ, as
+// FlashAttention-2 and -3 do.  dS is split into bf16 hi + lo for dK, two
+// products (about 16 of its bits): rounded once it moved qwen2-vl's bf16
+// step-1 loss past train_vs_fp32 on an H100, since a K projection's bias
+// has the gradient sum_j dk_j = scale sum_i (sum_j dS_ij) q_i, whose rows
+// of dS sum to zero and cancel.  dQ's bias gradient sums dS down its
+// columns, which do not cancel (tests/test_torch_flash_bwd.py holds both).
+// Every sum is fp32; scores are scaled into log2 units (exp2), the lse by
+// log2(e) once a row.  D 64 and 128 are the instances; any other multiple
+// of 8 up to 128 runs the one above it (zamba2-7b's 112 the 128 instance)
+// with zero columns.
+// Overlap.  Every wgmma commit group is waited for in the loop step that
+// issues it: a first version that left S and dP in flight across the
+// loop's back edge was serialized by ptxas (C7514 / C7515).  S and dP are
+// two groups, so P is computed while dP runs.
+//   * dq, and dk/dv at D 64: a step issues tile j + 1's S and dP and tile
+//     j's second products together, then computes P and dS of tile j + 1
+//     as they land and puts them in the other of two sets of A-operand
+//     registers while tile j's products still read theirs.
+//   * dk/dv at D 128: within a tile (dV issued before dS is computed, dK
+//     after): two tiles' operands (96 registers) beside tile j + 1's
+//     accumulators (64) and dK and dV's (128) would not fit in 240.
+// Measured (tools/flash_bwd_phases.py, granite's shape, an H100): against
+// the earlier kernels (S and dP waited for, then P and dS, then the second
+// products waited for), the dq pass's busiest SM 1.21M -> 0.83-0.89M
+// cycles and the dk/dv pass's 1.26M -> 1.09-1.13M; a tile's wait for its
+// loads is 140-215 cycles and the issue of its products 500-850, the
+// tensor pipe's queue being full.  Tried and not kept: the two consumers
+// taking turns to issue on named barriers (no change beyond noise, as in
+// the earlier kernels); half the exponentials on the FMA pipe by a
+// polynomial (slower: 1.53-1.65 against 1.34-1.38 ms at granite's shape);
+// dS's hi cut rather than rounded, a byte permute for a conversion (no
+// faster); eight ring stages at D 64 (the dq pass 2 % fewer cycles, within
+// the 5 % the same code moves between runs).
+// Balance.  Under causality the dk/dv key blocks' walks differ: the first
+// of qwen2-vl-2b's (Hkv 2, G 6, S 4096) visits 384 query tiles, the last
+// 12, and its 128 blocks, one an SM, left the pass's busiest SM at 1.92
+// times the median SM's cycles.  So a key block whose walk holds more than
+// half an SM's even share is cut into pieces of at most `cap` tiles
+// (`kv_item`; the wrapper sets cap, see kernels/flash_attention.py),
+// launched longest block first: there 576 pieces, the busiest SM at 1.18
+// times the median.  A cut block's pieces write fp32 partial sums into a
+// slot each; the piece that takes the block's last ticket (an atomic
+// counter, no wait) adds the slots in piece order, stores, and puts the
+// ticket back to 0, so the order and the bits are fixed.  The other paths'
+// blocks (whose longest walk is at most half an SM's share) stay whole.
+// Not taken: one pass over key blocks adding each dQ share to an fp32
+// accumulator (FlashAttention-3's), which saves S and dP of the dq pass (2
+// of the 8 products) but at granite's shape adds about 67,600 tile adds of
+// 16 KB, 2.2 GB read and written against a 67 MB accumulator larger than
+// the 50 MB L2, in a fixed key-block order that blocks wait on.
 //
 // fp32 (`flash_bwd_dq_kernel`, `flash_bwd_dkdv_kernel`): the same two
 // passes on the fp32 cores, for the 2e-5-class checks and the fp32 cuts.  A
@@ -348,18 +379,24 @@ int launch_f32(const void* q, const void* k, const void* v, const void* out, con
 // ------------------------------------------------------------- bf16 path --
 constexpr int WG = 128;        // threads of a warpgroup
 constexpr int BOX = 64;        // columns of a TMA box: one 128-byte swizzled row
-constexpr int DQ_BQ = 128;     // query rows a dq block, 64 for each consumer
 constexpr int DQ_BK = 64;      // keys a K / V tile of the dq kernel
-constexpr int KV_BK = 128;     // keys a dk/dv block, 64 for each consumer
+constexpr int KV_BK = 128;     // keys a dk/dv key block, 64 for each consumer
 constexpr int KV_BQ = 64;      // queries a Q / dO tile of the dk/dv kernel
 constexpr int STAGES = 4;      // of each ring
-static_assert(SQ_PAD % DQ_BQ == 0 && SQ_PAD % KV_BQ == 0, "the scratch's rows");
+static_assert(SQ_PAD % KV_BQ == 0, "the scratch's rows");
 
-// The dq kernel's shared memory: Q's and dO's tiles, then the K and V rings.
+// The dq kernel's consumers (64 query rows each, a block's rows BQ), their
+// registers after the hand-over, and its shared memory: Q's and dO's
+// tiles, then the K and V rings.  At D 64 three consumers fit (160
+// registers each beside the producer's 24); at D 128 two (240).
 template <int D>
 struct DqTile {
+  static constexpr int NC = D <= 64 ? 3 : 2;
+  static constexpr int BQ = 64 * NC;
+  static constexpr int REGS = NC == 3 ? 160 : 240;
+  static constexpr int THREADS = (NC + 1) * WG;
   static constexpr int NB = D / BOX;
-  static constexpr int Q_BOX = DQ_BQ * 128;
+  static constexpr int Q_BOX = BQ * 128;
   static constexpr int KV_BOX = DQ_BK * 128;
   static constexpr int Q_BYTES = NB * Q_BOX;
   static constexpr int KV_BYTES = NB * KV_BOX;
@@ -382,6 +419,70 @@ struct KvTile {
       1024 + 2 * K_BYTES + 2 * STAGES * (size_t)Q_BYTES + 2 * STAGES * ROW_BYTES;
   static_assert(D % BOX == 0 && SMEM <= 232448, "shared memory of an instance");
 };
+
+// The dk/dv grid's items.  Key block z (KV_BK keys) of a (kv head, batch)
+// visits w(z) = G * (n_qt - qt0(z)) query tiles of KV_BQ, every head of the
+// group in turn (qt0: under causality the first tile that reaches the
+// block); it is cut into n(z) = ceil(w(z) / cap) pieces (at least one) of
+// near-equal length, piece p taking tiles [w p / n, w (p + 1) / n).  Items
+// are the pieces in key-block order, the longest blocks first under
+// causality; the cut blocks come first (w falls with z), so their items
+// are 0 .. n_split - 1 and index the partial sums' slots.  Mirrored by
+// `kernels.flash_attention.dkdv_items`, which the tests hold to cover
+// every visible (query tile, key block) pair once.
+struct Item {
+  int z;      // key block
+  int t0;     // the piece's first tile of the block's sequence
+  int t1;     // one past its last
+  int p;      // the piece
+  int n;      // the block's pieces
+  int first;  // the block's first item
+};
+
+__host__ __device__ __forceinline__ int kv_tiles(int z, int n_qt, int G, int causal) {
+  return G * (n_qt - (causal ? min(z * (KV_BK / KV_BQ), n_qt) : 0));
+}
+
+__host__ __device__ __forceinline__ int kv_pieces(int w, int cap) {
+  return max(1, (w + cap - 1) / cap);
+}
+
+__device__ __forceinline__ Item kv_item(int x, int n_qt, int G, int causal, int cap) {
+  Item it;
+  it.z = 0;
+  it.first = 0;
+  it.n = kv_pieces(kv_tiles(0, n_qt, G, causal), cap);
+  if (!causal) {
+    it.z = x / it.n;
+    it.first = it.z * it.n;
+  } else {
+    while (x >= it.first + it.n) {
+      it.first += it.n;
+      ++it.z;
+      it.n = kv_pieces(kv_tiles(it.z, n_qt, G, causal), cap);
+      if (it.n == 1) {        // w falls with z: one item a block from here on
+        it.z += x - it.first;
+        it.first = x;
+        break;
+      }
+    }
+  }
+  const int w = kv_tiles(it.z, n_qt, G, causal);
+  it.p = x - it.first;
+  it.t0 = w * it.p / it.n;
+  it.t1 = w * (it.p + 1) / it.n;
+  return it;
+}
+
+// (items, cut items) of a (kv head, batch): what `kv_item` decodes.
+inline void kv_count(int n_kb, int n_qt, int G, int causal, int cap, int* items, int* split) {
+  *items = *split = 0;
+  for (int z = 0; z < n_kb; ++z) {
+    const int n = kv_pieces(kv_tiles(z, n_qt, G, causal), cap);
+    *items += n;
+    if (n > 1) *split += n;
+  }
+}
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -470,7 +571,7 @@ __device__ __forceinline__ void store_acc(__nv_bfloat16* base, size_t stride, co
 // k and v arrive through tensor maps (D, H, S, B); out and lse are read
 // directly for the prologue's delta.
 template <int D>
-__global__ void __launch_bounds__(3 * WG, 1)
+__global__ void __launch_bounds__(DqTile<D>::THREADS, 1)
 flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tdo,
                           const __grid_constant__ CUtensorMap tk,
@@ -490,12 +591,12 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   unsigned char* sv = sk + STAGES * T::KV_BYTES;
   uint64_t* q_full = bars;
   uint64_t* full = bars + 1;           // TMA has landed K and V of stage s
-  uint64_t* empty = full + STAGES;     // both consumers are done with stage s
+  uint64_t* empty = full + STAGES;     // every consumer is done with stage s
 
   const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * DQ_BQ;   // the longest rows first
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * T::BQ;   // the longest rows first
   const int hk = h / (Hq / Hkv);
-  const int k_end = causal ? min(Sk, q0 + DQ_BQ) : Sk;
+  const int k_end = causal ? min(Sk, q0 + T::BQ) : Sk;
   const int n_tiles = (k_end + DQ_BK - 1) / DQ_BK;
   const int wg = threadIdx.x / WG;
 
@@ -503,7 +604,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     repro::mbar_init(q_full, 1);
     for (int s = 0; s < STAGES; ++s) {
       repro::mbar_init(&full[s], 1);
-      repro::mbar_init(&empty[s], 2);
+      repro::mbar_init(&empty[s], T::NC);
     }
     repro::fence_barrier_init();
   }
@@ -538,7 +639,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     return;
   }
 
-  repro::setmaxnreg_inc<240>();
+  repro::setmaxnreg_inc<T::REGS>();
   const int cw = wg - 1;
   const int tid = threadIdx.x % WG, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
@@ -570,7 +671,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     part += __shfl_xor_sync(0xffffffffu, part, 2);
     dl[r] = ok ? part : 0.f;
     lse2[r] = ok ? lse[((size_t)b * Hq + h) * Sq + row] * LOG2E : BIG;
-    if (t == 0) {
+    if (t == 0 && row < Sq_pad) {
       const size_t at = ((size_t)b * Hq + h) * Sq_pad + row;
       lse2_out[at] = lse2[r];
       delta_out[at] = dl[r];
@@ -582,22 +683,21 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t k_at = repro::smem_addr(sk), v_at = repro::smem_addr(sv);
   float acc[D / 2] = {};
   float sc[32], dp[32];
-  uint32_t a[2][4][4];                                     // dS, bf16 hi + lo
+  uint32_t a0[4][4], a1[4][4];           // dS rounded once to bf16, two tiles' in turn
 
-  repro::mbar_wait(q_full, 0);
-  for (int j = 0; j < n_tiles; ++j) {
+  // S = Q K^T, then dP = dO V^T, of tile j: two commit groups, once the
+  // tile's K and V have landed.
+  auto first = [&](int j) {
     const int s = j % STAGES;
     repro::mbar_wait(&full[s], (j / STAGES) & 1);
-    const uint32_t ks = k_at + s * T::KV_BYTES, vs = v_at + s * T::KV_BYTES;
     repro::wgmma_fence();
-    rows_by_rows<D, T::Q_BOX, T::KV_BOX>(sc, q_at, ks);      // S = Q K^T
-    rows_by_rows<D, T::Q_BOX, T::KV_BOX>(dp, do_at, vs);     // dP = dO V^T
+    rows_by_rows<D, T::Q_BOX, T::KV_BOX>(sc, q_at, k_at + s * T::KV_BYTES);
     repro::wgmma_commit();
-    repro::wgmma_wait<0>();
-    repro::fence_regs(sc);
-    repro::fence_regs(dp);
-
-    // dS = P (dP - delta), P = 2^(S scale_log2 - lse2), 0 where masked.
+    rows_by_rows<D, T::Q_BOX, T::KV_BOX>(dp, do_at, v_at + s * T::KV_BYTES);
+    repro::wgmma_commit();
+  };
+  // P = 2^(S scale_log2 - lse2) of tile j into sc, 0 where masked.
+  auto probs = [&](int j) {
     const int k0 = j * DQ_BK;
     const bool edge = k0 + DQ_BK > Sk || (causal && k0 + DQ_BK - 1 > first_row);
 #pragma unroll
@@ -610,19 +710,66 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
           const int key = k0 + n * 8 + 2 * t + (e & 1);
           if (key >= Sk || (causal && key > row0 + 8 * r)) p = 0.f;
         }
-        sc[4 * n + e] = p * (dp[4 * n + e] - dl[r]);
+        sc[4 * n + e] = p;
       }
-    to_a_split(sc, a);
-
+  };
+  // dS = P (dP - delta) into sc.
+  auto grads = [&]() {
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[4 * n + e] *= dp[4 * n + e] - dl[e >> 1];
+  };
+  // dQ += dS K of tile j, dS in `a`: one commit group.
+  auto second = [&](int j, uint32_t (&a)[4][4]) {
     repro::fence_regs(acc);
     repro::wgmma_fence();
-    regs_by_rows<D, T::KV_BOX>(acc, a[1], ks);               // dQ += dS K, lo first
-    regs_by_rows<D, T::KV_BOX>(acc, a[0], ks);
+    regs_by_rows<D, T::KV_BOX>(acc, a, k_at + (j % STAGES) * T::KV_BYTES);
     repro::wgmma_commit();
-    repro::wgmma_wait<0>();
+  };
+  // Tile j + 1's S and dP and tile j's dQ product (dS in `cur`) are issued
+  // together; P and dS of tile j + 1 are computed as they land, and put in
+  // `nxt` while the dQ product still reads `cur`.
+  auto step = [&](int j, uint32_t (&cur)[4][4], uint32_t (&nxt)[4][4]) {
+    first(j + 1);
+    second(j, cur);
+    repro::wgmma_wait<2>();
+    repro::fence_regs(sc);
+    probs(j + 1);
+    repro::wgmma_wait<1>();
+    repro::fence_regs(dp);
+    grads();
+    to_a_operand(sc, nxt);
+    repro::wgmma_wait<0>();           // tile j's dQ product: its stage is free
     repro::fence_regs(acc);
-    if (tid == 0) repro::mbar_arrive(&empty[s]);
+    if (tid == 0) repro::mbar_arrive(&empty[j % STAGES]);
+  };
+
+  // Every commit group is waited for in the step that issues it (ptxas
+  // serializes the products where groups stay in flight across a loop's
+  // back edge); the steps go two at a time, the dS operands in turn.
+  repro::mbar_wait(q_full, 0);
+  first(0);
+  repro::wgmma_wait<1>();
+  repro::fence_regs(sc);
+  probs(0);
+  repro::wgmma_wait<0>();
+  repro::fence_regs(dp);
+  grads();
+  to_a_operand(sc, a0);
+  int j = 0;
+  for (; j + 2 < n_tiles; j += 2) {
+    step(j, a0, a1);
+    step(j + 1, a1, a0);
   }
+  if (j + 1 < n_tiles) {
+    step(j, a0, a1);
+    second(j + 1, a1);
+  } else {
+    second(j, a0);
+  }
+  repro::wgmma_wait<0>();
+  repro::fence_regs(acc);
 
   store_acc<D>(dq + (size_t)b * Sq * Hq * d_rt + (size_t)h * d_rt, (size_t)Hq * d_rt, acc, scale,
                row0, Sq, t, d_rt);
@@ -631,6 +778,11 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 // dk and dv.  k and v (the block's tiles) and q and dout (the streamed ones)
 // arrive through tensor maps (D, H, S, B); each Q / dO tile's lse (log2
 // units) and delta by 1-D bulk copies from the scratch the dq kernel wrote.
+// A block is one item (`kv_item`): a piece of a key block's tiles.  A key
+// block cut into pieces sums them through `parts` (fp32, a slot an item,
+// the accumulators in their register layout) and `count` (a ticket a key
+// block): the piece that takes the last ticket adds the slots in piece
+// order, stores, and puts the ticket back to 0.
 template <int D>
 __global__ void __launch_bounds__(3 * WG, 1)
 flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -639,11 +791,13 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tv,
                             const float* __restrict__ lse2, const float* __restrict__ delta,
                             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                            int Sq, int Sk, int Sq_pad, int Hq, int Hkv, int causal,
+                            float4* __restrict__ parts, int* __restrict__ count, int Sq, int Sk,
+                            int Sq_pad, int Hq, int Hkv, int causal, int cap, int n_split,
                             float scale_log2, float scale, int d_rt) {
   using T = KvTile<D>;
   extern __shared__ unsigned char kv_smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 2 * STAGES];
+  __shared__ int last_piece;
   const uint32_t raw = repro::smem_addr(kv_smem_raw);
   unsigned char* sk = kv_smem_raw + (((raw + 1023) & ~1023u) - raw);
   unsigned char* sv = sk + T::K_BYTES;
@@ -656,13 +810,14 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   uint64_t* empty = full + STAGES;     // both consumers are done with stage s
 
   const int hk = blockIdx.x, b = blockIdx.y;
-  const int k0 = blockIdx.z * KV_BK;
   const int G = Hq / Hkv;
   const int n_qt = (Sq + KV_BQ - 1) / KV_BQ;
+  const Item it = kv_item(blockIdx.z, n_qt, G, causal, cap);
+  const int k0 = it.z * KV_BK;
   // Causal: no query tile wholly before the block's first key sees it.
-  const int qt0 = causal ? min(k0 / KV_BQ, n_qt) : 0;
+  const int qt0 = causal ? min(it.z * (KV_BK / KV_BQ), n_qt) : 0;
   const int per_head = n_qt - qt0;
-  const int n_tiles = G * per_head;
+  const int n_tiles = it.t1 - it.t0;
   const int wg = threadIdx.x / WG;
 
   if (threadIdx.x == 0) {
@@ -690,8 +845,8 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       }
       for (int j = 0; j < n_tiles; ++j) {
         const int s = j % STAGES;
-        const int h = hk * G + j / per_head;
-        const int i0 = (qt0 + j % per_head) * KV_BQ;
+        const int h = hk * G + (it.t0 + j) / per_head;
+        const int i0 = (qt0 + (it.t0 + j) % per_head) * KV_BQ;
         repro::mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
         repro::mbar_arrive_expect_tx(&full[s], 2 * T::Q_BYTES + 2 * T::ROW_BYTES);
 #pragma unroll
@@ -721,70 +876,217 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t q_at = repro::smem_addr(sq), do_at = repro::smem_addr(sdo);
   float dka[D / 2] = {}, dva[D / 2] = {};
   float st[32], dpt[32];
-  uint32_t ap[4][4], as[2][4][4];                          // P; dS, bf16 hi + lo
+  // P, and dS in bf16 hi + lo, as A operands; at D 64 two tiles' in turn.
+  uint32_t ap0[4][4], as0[2][4][4], ap1[4][4], as1[2][4][4];
 
-  repro::mbar_wait(kv_full, 0);
-  for (int j = 0; j < n_tiles; ++j) {
+  // S^T = K Q^T, then dP^T = V dO^T, of tile j: two commit groups, once
+  // the tile has landed.
+  auto first = [&](int j) {
     const int s = j % STAGES;
-    const int i0 = (qt0 + j % per_head) * KV_BQ;
     repro::mbar_wait(&full[s], (j / STAGES) & 1);
-    const uint32_t qs = q_at + s * T::Q_BYTES, dos = do_at + s * T::Q_BYTES;
     repro::wgmma_fence();
-    rows_by_rows<D, T::K_BOX, T::Q_BOX>(st, k_at, qs);       // S^T = K Q^T
-    rows_by_rows<D, T::K_BOX, T::Q_BOX>(dpt, v_at, dos);     // dP^T = V dO^T
+    rows_by_rows<D, T::K_BOX, T::Q_BOX>(st, k_at, q_at + s * T::Q_BYTES);
     repro::wgmma_commit();
-    repro::wgmma_wait<0>();
-    repro::fence_regs(st);
-    repro::fence_regs(dpt);
-
-    // P^T and dS^T; columns are queries, whose lse and delta the stage holds.
-    const float* L = sl + s * KV_BQ;
-    const float* Dl = sd + s * KV_BQ;
+    rows_by_rows<D, T::K_BOX, T::Q_BOX>(dpt, v_at, do_at + s * T::Q_BYTES);
+    repro::wgmma_commit();
+  };
+  // P^T of tile j into st; columns are queries, whose lse the stage holds.
+  auto probs = [&](int j) {
+    const int i0 = (qt0 + (it.t0 + j) % per_head) * KV_BQ;
+    const float* L = sl + (j % STAGES) * KV_BQ;
     const bool edge = causal && i0 < first_key + 63;
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
       const float2 l2 = *reinterpret_cast<const float2*>(L + 8 * n + 2 * t);
-      const float2 d2 = *reinterpret_cast<const float2*>(Dl + 8 * n + 2 * t);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float lq = (e & 1) ? l2.y : l2.x, dlq = (e & 1) ? d2.y : d2.x;
-        float p = ex2(fmaf(st[4 * n + e], scale_log2, -lq));
+        float p = ex2(fmaf(st[4 * n + e], scale_log2, -((e & 1) ? l2.y : l2.x)));
         if (edge && key0 + 8 * (e >> 1) > i0 + 8 * n + 2 * t + (e & 1)) p = 0.f;
         st[4 * n + e] = p;
-        dpt[4 * n + e] = p * (dpt[4 * n + e] - dlq);
       }
     }
-    to_a_operand(st, ap);
-    to_a_split(dpt, as);
-
+  };
+  // dS^T = P^T (dP^T - delta) of tile j into dpt.
+  auto grads = [&](int j) {
+    const float* Dl = sd + (j % STAGES) * KV_BQ;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 d2 = *reinterpret_cast<const float2*>(Dl + 8 * n + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dpt[4 * n + e] = st[4 * n + e] * (dpt[4 * n + e] - ((e & 1) ? d2.y : d2.x));
+    }
+  };
+  // dV += P^T dO, then dK += dS^T Q (lo's product first), of tile j.
+  auto dv_product = [&](int j, uint32_t (&ap)[4][4]) {
     repro::fence_regs(dva);
+    repro::wgmma_fence();
+    regs_by_rows<D, T::Q_BOX>(dva, ap, do_at + (j % STAGES) * T::Q_BYTES);
+  };
+  auto dk_product = [&](int j, uint32_t (&as)[2][4][4]) {
+    const uint32_t qs = q_at + (j % STAGES) * T::Q_BYTES;
     repro::fence_regs(dka);
     repro::wgmma_fence();
-    regs_by_rows<D, T::Q_BOX>(dva, ap, dos);                 // dV += P^T dO
-    regs_by_rows<D, T::Q_BOX>(dka, as[1], qs);               // dK += dS^T Q, lo first
+    regs_by_rows<D, T::Q_BOX>(dka, as[1], qs);
     regs_by_rows<D, T::Q_BOX>(dka, as[0], qs);
-    repro::wgmma_commit();
-    repro::wgmma_wait<0>();
-    repro::fence_regs(dva);
-    repro::fence_regs(dka);
-    if (tid == 0) repro::mbar_arrive(&empty[s]);
+  };
+  auto release = [&](int j) {
+    if (tid == 0) repro::mbar_arrive(&empty[j % STAGES]);
+  };
+
+  // Every commit group is waited for in the iteration that issues it
+  // (ptxas serializes the products where groups stay in flight across the
+  // loop's back edge).
+  repro::mbar_wait(kv_full, 0);
+  if constexpr (D <= 64) {
+    // Tile j + 1's S^T and dP^T and tile j's dV and dK products (operands
+    // in `cp`, `cs`) are issued together; P^T and dS^T of tile j + 1 are
+    // computed as they land, and put in `np`, `ns` while tile j's products
+    // still read theirs.  (At D 128 two tiles' operands (96 registers) would
+    // not fit beside the accumulators.)
+    auto step = [&](int j, uint32_t (&cp)[4][4], uint32_t (&cs)[2][4][4], uint32_t (&np)[4][4],
+                    uint32_t (&ns)[2][4][4]) {
+      first(j + 1);
+      dv_product(j, cp);
+      dk_product(j, cs);
+      repro::wgmma_commit();
+      repro::wgmma_wait<2>();
+      repro::fence_regs(st);
+      probs(j + 1);
+      repro::wgmma_wait<1>();
+      repro::fence_regs(dpt);
+      grads(j + 1);
+      to_a_operand(st, np);
+      to_a_split(dpt, ns);
+      repro::wgmma_wait<0>();         // tile j's products: its stage is free
+      repro::fence_regs(dva);
+      repro::fence_regs(dka);
+      release(j);
+    };
+    auto last = [&](int j, uint32_t (&cp)[4][4], uint32_t (&cs)[2][4][4]) {
+      dv_product(j, cp);
+      dk_product(j, cs);
+      repro::wgmma_commit();
+    };
+    if (n_tiles > 0) {
+      first(0);
+      repro::wgmma_wait<1>();
+      repro::fence_regs(st);
+      probs(0);
+      repro::wgmma_wait<0>();
+      repro::fence_regs(dpt);
+      grads(0);
+      to_a_operand(st, ap0);
+      to_a_split(dpt, as0);
+      int j = 0;
+      for (; j + 2 < n_tiles; j += 2) {
+        step(j, ap0, as0, ap1, as1);
+        step(j + 1, ap1, as1, ap0, as0);
+      }
+      if (j + 1 < n_tiles) {
+        step(j, ap0, as0, ap1, as1);
+        last(j + 1, ap1, as1);
+      } else {
+        last(j, ap0, as0);
+      }
+    }
+  } else {
+    // Within a tile: P^T is computed while dP^T runs, dS^T while dV's
+    // product runs.
+    for (int j = 0; j < n_tiles; ++j) {
+      first(j);
+      repro::wgmma_wait<1>();
+      repro::fence_regs(st);
+      probs(j);
+      to_a_operand(st, ap0);
+      dv_product(j, ap0);
+      repro::wgmma_commit();
+      repro::wgmma_wait<1>();
+      repro::fence_regs(dpt);
+      grads(j);
+      to_a_split(dpt, as0);
+      dk_product(j, as0);
+      repro::wgmma_commit();
+      repro::wgmma_wait<0>();
+      repro::fence_regs(dva);
+      repro::fence_regs(dka);
+      release(j);
+    }
   }
+  repro::wgmma_wait<0>();
+  repro::fence_regs(dva);
+  repro::fence_regs(dka);
 
   const size_t base = (size_t)b * Sk * Hkv * d_rt + (size_t)hk * d_rt;
+  if (it.n == 1) {
+    store_acc<D>(dk + base, (size_t)Hkv * d_rt, dka, scale, key0, Sk, t, d_rt);
+    store_acc<D>(dv + base, (size_t)Hkv * d_rt, dva, 1.f, key0, Sk, t, d_rt);
+    return;
+  }
+
+  // A piece of a cut key block: its sums into its slot, then a ticket.
+  // Slot layout: (cw, dk or dv, D / 8 float4 a thread, WG threads).
+  constexpr int V4 = D / 8;
+  const size_t bh = (size_t)b * Hkv + hk;
+  float4* slot = parts + ((bh * n_split + blockIdx.z) * 2 + cw) * 2 * V4 * WG;
+#pragma unroll
+  for (int c = 0; c < V4; ++c) {
+    __stcg(slot + c * WG + tid, make_float4(dka[4 * c], dka[4 * c + 1], dka[4 * c + 2],
+                                            dka[4 * c + 3]));
+    __stcg(slot + (V4 + c) * WG + tid, make_float4(dva[4 * c], dva[4 * c + 1], dva[4 * c + 2],
+                                                   dva[4 * c + 3]));
+  }
+  __threadfence();
+  repro::named_bar_sync(1, 2 * WG);
+  int* ticket = count + bh * ((Sk + KV_BK - 1) / KV_BK) + it.z;
+  if (threadIdx.x == WG) last_piece = atomicAdd(ticket, 1) == it.n - 1;
+  repro::named_bar_sync(1, 2 * WG);
+  if (!last_piece) return;
+  __threadfence();
+  // The last piece: every slot of the block, in piece order.
+#pragma unroll
+  for (int c = 0; c < V4; ++c) {
+    float4 sk4 = make_float4(0.f, 0.f, 0.f, 0.f), sv4 = sk4;
+    for (int p = 0; p < it.n; ++p) {
+      const float4* other = parts + ((bh * n_split + it.first + p) * 2 + cw) * 2 * V4 * WG;
+      const float4 a = __ldcg(other + c * WG + tid), v4 = __ldcg(other + (V4 + c) * WG + tid);
+      if (p == 0) {
+        sk4 = a;
+        sv4 = v4;
+      } else {
+        sk4 = make_float4(sk4.x + a.x, sk4.y + a.y, sk4.z + a.z, sk4.w + a.w);
+        sv4 = make_float4(sv4.x + v4.x, sv4.y + v4.y, sv4.z + v4.z, sv4.w + v4.w);
+      }
+    }
+    dka[4 * c] = sk4.x;
+    dka[4 * c + 1] = sk4.y;
+    dka[4 * c + 2] = sk4.z;
+    dka[4 * c + 3] = sk4.w;
+    dva[4 * c] = sv4.x;
+    dva[4 * c + 1] = sv4.y;
+    dva[4 * c + 2] = sv4.z;
+    dva[4 * c + 3] = sv4.w;
+  }
   store_acc<D>(dk + base, (size_t)Hkv * d_rt, dka, scale, key0, Sk, t, d_rt);
   store_acc<D>(dv + base, (size_t)Hkv * d_rt, dva, 1.f, key0, Sk, t, d_rt);
+  if (threadIdx.x == WG) *ticket = 0;   // for the next call
 }
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, const void* out, const void* dout,
-                const void* lse, void* dq, void* dk, void* dv, float* lse2, float* delta, int B,
-                int Sq, int Sk, int Sq_pad, int Hq, int Hkv, int d, int causal,
-                cudaStream_t stream) {
-  const int blocks_q = (Sq + DQ_BQ - 1) / DQ_BQ, blocks_k = (Sk + KV_BK - 1) / KV_BK;
-  if (blocks_q > 65535 || blocks_k > 65535) return -1;
+                const void* lse, void* dq, void* dk, void* dv, float* lse2, float* delta,
+                float4* parts, int* count, int B, int Sq, int Sk, int Sq_pad, int Hq, int Hkv,
+                int d, int causal, int cap, int items, int n_split, cudaStream_t stream) {
+  const int blocks_q = (Sq + DqTile<D>::BQ - 1) / DqTile<D>::BQ;
+  const int n_kb = (Sk + KV_BK - 1) / KV_BK;
+  int want_items, want_split;
+  kv_count(n_kb, (Sq + KV_BQ - 1) / KV_BQ, Hq / Hkv, causal, cap, &want_items, &want_split);
+  if (blocks_q > 65535 || items > 65535 || cap < 1 || items != want_items ||
+      n_split != want_split)
+    return -1;
   CUtensorMap tq_dq, tdo_dq, tk_dq, tv_dq, tq_kv, tdo_kv, tk_kv, tv_kv;
-  if (!repro::bf16_bshd_map(&tq_dq, q, B, Sq, Hq, d, DQ_BQ) ||
-      !repro::bf16_bshd_map(&tdo_dq, dout, B, Sq, Hq, d, DQ_BQ) ||
+  if (!repro::bf16_bshd_map(&tq_dq, q, B, Sq, Hq, d, DqTile<D>::BQ) ||
+      !repro::bf16_bshd_map(&tdo_dq, dout, B, Sq, Hq, d, DqTile<D>::BQ) ||
       !repro::bf16_bshd_map(&tk_dq, k, B, Sk, Hkv, d, DQ_BK) ||
       !repro::bf16_bshd_map(&tv_dq, v, B, Sk, Hkv, d, DQ_BK) ||
       !repro::bf16_bshd_map(&tq_kv, q, B, Sq, Hq, d, KV_BQ) ||
@@ -800,7 +1102,8 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* out, co
   if (err != cudaSuccess) return (int)err;
   // x: heads (neighbours share a kv head, hence its tiles in L2); z: query
   // blocks, taken in reverse inside the kernel.
-  flash_bwd_dq_wgmma_kernel<D><<<dim3(Hq, B, blocks_q), 3 * WG, DqTile<D>::SMEM, stream>>>(
+  flash_bwd_dq_wgmma_kernel<D><<<dim3(Hq, B, blocks_q), DqTile<D>::THREADS, DqTile<D>::SMEM,
+                                 stream>>>(
       tq_dq, tdo_dq, tk_dq, tv_dq, static_cast<const __nv_bfloat16*>(out),
       static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse), lse2, delta,
       static_cast<__nv_bfloat16*>(dq), Sq, Sk, Sq_pad, Hq, Hkv, causal, scale_log2, scale, d);
@@ -810,10 +1113,11 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* out, co
   err = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)KvTile<D>::SMEM);
   if (err != cudaSuccess) return (int)err;
-  // z: key blocks in order, the first (under causality the longest) first.
-  flash_bwd_dkdv_wgmma_kernel<D><<<dim3(Hkv, B, blocks_k), 3 * WG, KvTile<D>::SMEM, stream>>>(
+  // z: the items, the longest first; x, y: kv heads and batches.
+  flash_bwd_dkdv_wgmma_kernel<D><<<dim3(Hkv, B, items), 3 * WG, KvTile<D>::SMEM, stream>>>(
       tq_kv, tdo_kv, tk_kv, tv_kv, lse2, delta, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), Sq, Sk, Sq_pad, Hq, Hkv, causal, scale_log2, scale, d);
+      static_cast<__nv_bfloat16*>(dv), parts, count, Sq, Sk, Sq_pad, Hq, Hkv, causal, cap,
+      n_split, scale_log2, scale, d);
   return (int)cudaGetLastError();
 }
 
@@ -823,14 +1127,19 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* out, co
 // -1 for arguments the kernels do not take.  q, out, dout, dq: (B, Sq, Hq,
 // D); k, v, dk, dv: (B, Sk, Hkv, D); lse: (B, Hkv, Hq / Hkv, Sq) fp32;
 // scratch: 2 * B * Hq * Sq_pad fp32 (Sq_pad = Sq rounded up to 128), the
-// lse and delta rows the first kernel writes for the second.  All
-// contiguous, on the device, 16-byte aligned; D a multiple of the 16-byte
-// vector (8 bf16, 4 fp32) and at most 128.
+// lse and delta rows the first kernel writes for the second.  bf16 only:
+// the dk/dv items (`kv_item`) under the piece cap `cap`, `items` of them and
+// `n_split` cut a (kv head, batch), which the launcher recomputes and
+// refuses if they differ; parts: B * Hkv * n_split slots of 128 * D * 2
+// fp32; count: B * Hkv * ceil(Sk / 128) int32 tickets, zero (each call
+// leaves them zero).  All contiguous, on the device, 16-byte aligned; D a
+// multiple of the 16-byte vector (8 bf16, 4 fp32) and at most 128.
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* out, const void* dout, const void* lse,
-                                         void* dq, void* dk, void* dv, void* scratch, int B,
-                                         int Sq, int Sk, int Hq, int Hkv, int D, int causal,
-                                         int is_bf16, void* stream) {
+                                         void* dq, void* dk, void* dv, void* scratch,
+                                         void* parts, void* count, int B, int Sq, int Sk, int Hq,
+                                         int Hkv, int D, int causal, int cap, int items,
+                                         int n_split, int is_bf16, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || Hkv <= 0 || Hq <= 0 || Hq % Hkv != 0 || Hq > 65535 ||
       B > 65535)
     return -1;
@@ -840,11 +1149,13 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
   float* delta = lse2 + (size_t)B * Hq * Sq_pad;
   if (is_bf16) {
     if (D <= 0 || D % 8 != 0 || D > repro::kMaxHeadDim) return -1;
+    float4* p = static_cast<float4*>(parts);
+    int* c = static_cast<int*>(count);
     if (D <= 64)
-      return launch_bf16<64>(q, k, v, out, dout, lse, dq, dk, dv, lse2, delta, B, Sq, Sk, Sq_pad,
-                             Hq, Hkv, D, causal, s);
-    return launch_bf16<128>(q, k, v, out, dout, lse, dq, dk, dv, lse2, delta, B, Sq, Sk, Sq_pad,
-                            Hq, Hkv, D, causal, s);
+      return launch_bf16<64>(q, k, v, out, dout, lse, dq, dk, dv, lse2, delta, p, c, B, Sq, Sk,
+                             Sq_pad, Hq, Hkv, D, causal, cap, items, n_split, s);
+    return launch_bf16<128>(q, k, v, out, dout, lse, dq, dk, dv, lse2, delta, p, c, B, Sq, Sk,
+                            Sq_pad, Hq, Hkv, D, causal, cap, items, n_split, s);
   }
   if (D == 32)
     return launch_f32<32>(q, k, v, out, dout, lse, dq, dk, dv, delta, B, Sq, Sk, Sq_pad, Hq,

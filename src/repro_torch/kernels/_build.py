@@ -220,9 +220,9 @@ SIGNATURES = {
     "repro_decode_attention": [_PTR] * 9 + [_INT] * 9 + [_PTR],
     # q, k, v, out, lse, B, Sq, Sk, Hq, Hkv, D, causal, is_bf16, stream
     "repro_flash_attention": [_PTR] * 5 + [_INT] * 8 + [_PTR],
-    # q, k, v, out, dout, lse, dq, dk, dv, scratch, B, Sq, Sk, Hq, Hkv, D, causal,
-    # is_bf16, stream
-    "repro_flash_attention_bwd": [_PTR] * 10 + [_INT] * 8 + [_PTR],
+    # q, k, v, out, dout, lse, dq, dk, dv, scratch, parts, count, B, Sq, Sk, Hq, Hkv,
+    # D, causal, cap, items, n_split, is_bf16, stream
+    "repro_flash_attention_bwd": [_PTR] * 12 + [_INT] * 11 + [_PTR],
     # x, Bm, Cm, dt, A_log, D, y, state, carry, sync, B, S, H, P, N, chunk,
     # x / Bm / Cm batch and sequence strides (elements), is_bf16, stream
     "repro_ssm_scan": [_PTR] * 10 + [_INT] * 6 + [_I64] * 6 + [_INT, _PTR],

@@ -27,13 +27,17 @@ log-sum-exp of the same masked scores.
 The gradient, `flash_attention_bwd`, wraps ``csrc/flash_attention_bwd.cu``:
 the reference's `custom_vjp` rule (`_flash_bwd_rule`) as two kernels, a dq
 pass (a block per query tile and head, which also writes each row's delta
-= sum(dout * out)) and a dk/dv pass (a block per key tile and kv head,
-over the query tiles of every head of the group), without atomics, so two
+= sum(dout * out)) and a dk/dv pass, without unordered atomics, so two
 calls agree bit for bit.  Bound by operations: five products over the
 visible pairs (`work_bwd`, 2.5 times the forward's FLOPs).  bf16 runs on
-wgmma from a TMA ring, P rounded once to bf16 for dV and dS split into
-bf16 hi + lo for dQ and dK; with S and dP recomputed by both passes that is
-9 products, so the kernels can reach at most 5/9 of the bound.  fp32 runs
+wgmma from a TMA ring: P rounded once to bf16 for dV, dS rounded once for
+dQ and split into bf16 hi + lo for dK (a K bias's gradient cancels, a Q
+bias's does not); with S and dP recomputed by both passes that is 8
+products, so the kernels can reach at most 5/8 of the bound.  The dk/dv
+pass's items are pieces of key blocks (`dkdv_items`, cut under
+`dkdv_cap`), so that the long causal key blocks of few kv heads spread
+over the SMs; a block cut into pieces sums them in piece order through an
+fp32 scratch, its last piece (by a ticket) adding and storing.  fp32 runs
 on the fp32 cores.  One call is two launches, both counted in
 `flash_attention_bwd.launches`.  Plain version: `flash_attention_bwd_plain`,
 the rule itself.
@@ -41,7 +45,8 @@ the rule itself.
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import List, Tuple
 
 import torch
 
@@ -49,6 +54,7 @@ from repro_torch.models.attention import NEG_INF, _flash_bwd_rule, gqa_reference
 
 from . import _build
 from .scope import kernel_scope
+from .ssm_scan import _sync_buffer
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -172,6 +178,18 @@ flash_attention.launches = 0
 #: (batch, head): Sq rounded up to a multiple of this (``SQ_PAD`` of the
 #: source).
 BWD_SQ_PAD = 128
+#: Keys a dk/dv key block and queries a Q / dO tile of the bf16 dk/dv
+#: kernel (``KV_BK``, ``KV_BQ``), and keys a K / V tile of its dq kernel
+#: (``DQ_BK``).
+KV_KEY_BLOCK, KV_QUERY_TILE, DQ_KEY_TILE = 128, 64, 64
+#: The dk/dv key blocks are cut into pieces of at most ``cap`` query tiles
+#: where the longest block holds more than half of an SM's even share of
+#: the pass (under causality the first key blocks of few kv heads, as
+#: qwen2-vl-2b's, whose longest block is 32 times its shortest and twice an
+#: SM's share): ``cap`` is then the larger of `MIN_PIECE` and the pass's
+#: tiles over `PIECE_WAVES` times the SMs.  Elsewhere the blocks, taken
+#: longest first, balance as they are.
+MIN_PIECE, PIECE_WAVES = 16, 4
 
 
 def bwd_kernel_instances(d: int) -> Tuple[str, str]:
@@ -179,6 +197,50 @@ def bwd_kernel_instances(d: int) -> Tuple[str, str]:
     runs, by the names the build's resources give them."""
     n = 64 if d <= 64 else 128
     return f"flash_bwd_dq_wgmma_kernel<{n}>", f"flash_bwd_dkdv_wgmma_kernel<{n}>"
+
+
+def _kv_tiles(z: int, n_qt: int, G: int, causal: bool) -> int:
+    """Query tiles that key block ``z`` visits, every head of its group."""
+    return G * (n_qt - (min(z * (KV_KEY_BLOCK // KV_QUERY_TILE), n_qt) if causal else 0))
+
+
+def dkdv_cap(B: int, Sq: int, Sk: int, Hkv: int, G: int, causal: bool, n_sm: int) -> int:
+    """The piece cap of the bf16 dk/dv kernel on a card of ``n_sm`` SMs (the
+    longest block's tiles where no block is cut)."""
+    n_qt, n_kb = -(-Sq // KV_QUERY_TILE), -(-Sk // KV_KEY_BLOCK)
+    tiles = [_kv_tiles(z, n_qt, G, causal) for z in range(n_kb)]
+    total = B * Hkv * sum(tiles)
+    if 2 * max(tiles) * n_sm <= total:
+        return max(1, max(tiles))
+    return max(MIN_PIECE, -(-total // (PIECE_WAVES * n_sm)))
+
+
+def dkdv_items(Sq: int, Sk: int, G: int, causal: bool, cap: int
+               ) -> List[Tuple[int, int, int, int, int]]:
+    """The bf16 dk/dv kernel's items of one (kv head, batch), in launch
+    order (``kv_item`` of the source): (key block z, first tile, one past
+    the last, piece, pieces of the block).  Block z's tiles are its query
+    tiles head by head (tile t: head ``t // per_head``, query tile ``qt0 +
+    t % per_head``); it is cut into ``ceil(tiles / cap)`` pieces (at least
+    one) of near-equal length.  A block cut in more than one piece sums
+    its pieces in piece order; those items come first."""
+    n_qt, n_kb = -(-Sq // KV_QUERY_TILE), -(-Sk // KV_KEY_BLOCK)
+    out = []
+    for z in range(n_kb):
+        w = _kv_tiles(z, n_qt, G, causal)
+        n = max(1, -(-w // cap))
+        out += [(z, w * p // n, w * (p + 1) // n, p, n) for p in range(n)]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _dkdv_plan(B: int, Sq: int, Sk: int, Hkv: int, G: int, causal: bool, index: int
+               ) -> Tuple[int, int, int]:
+    """(cap, items, cut items) of the bf16 dk/dv launch on card ``index``."""
+    n_sm = torch.cuda.get_device_properties(index).multi_processor_count
+    cap = dkdv_cap(B, Sq, Sk, Hkv, G, causal, n_sm)
+    items = dkdv_items(Sq, Sk, G, causal, cap)
+    return cap, len(items), sum(1 for it in items if it[4] > 1)
 
 
 def flash_attention_bwd_plain(q, k, v, out, lse, dout, causal: bool = True,
@@ -238,15 +300,30 @@ def _run_bwd(q, k, v, out, lse, dout, causal: bool):
         return dq, dk.zero_(), dv.zero_()
     sq_pad = -(-Sq // BWD_SQ_PAD) * BWD_SQ_PAD
     scratch = torch.empty(2 * B * Hq * sq_pad, dtype=torch.float32, device=q.device)
+    parts = count = None
+    cap = items = n_split = 0
+    if q.dtype == torch.bfloat16:
+        cap, items, n_split = _dkdv_plan(B, Sq, Sk, Hkv, Hq // Hkv, causal, q.device.index)
+        width = 64 if D <= 64 else 128                     # the instance's d_head
+        parts = torch.empty(B * Hkv * n_split * 2 * KV_KEY_BLOCK * width, dtype=torch.float32,
+                            device=q.device)
+        count = _sync_buffer(_TICKETS, q.device, B * Hkv * -(-Sk // KV_KEY_BLOCK))
+    ptr = lambda t: 0 if t is None else t.data_ptr()
     with torch.cuda.device(q.device):
         code = _build.library().repro_flash_attention_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
-            B, Sq, Sk, Hq, Hkv, D, int(causal), int(q.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
+            ptr(parts), ptr(count), B, Sq, Sk, Hq, Hkv, D, int(causal), cap, items, n_split,
+            int(q.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
     _build.check(code, "flash_attention_bwd")
     flash_attention_bwd.launches += 2               # the dq and the dk/dv kernel
     return dq, dk, dv
+
+
+#: The bf16 dk/dv kernel's tickets, a key block each, on each device
+#: (`ssm_scan._sync_buffer`: the call's last piece of a block puts its
+#: ticket back to 0, so a call launches no zeroing).
+_TICKETS: dict = {}
 
 
 #: Kernel launches, two a call (never counts the plain version).
