@@ -21,10 +21,11 @@ slices of the conv output that `mamba2_block` hands it are not copied, and
 computes ``-exp(A_log)`` and D per head itself.
 
 The gradient is `ssm_scan_bwd`, `_SSMScanFn`'s backward: three launches of
-``csrc/ssm_scan_bwd.cu`` on the card (the states at each chunk's start and
-the state gradients at each chunk's end by two look-back chains; the
-chunks' gradients, heads grouped in a block; the sums over head groups and
-over (batch, sequence)), its plain version `ssm_scan_bwd_plain` on the CPU
+``csrc/ssm_scan_bwd.cu`` on the card (the states and state gradients every
+`BWD_STATE_CHUNKS` chunks by two look-back chains; the chunks' gradients,
+the states between recomputed on chip, heads grouped in a block of two
+consumer warpgroups; the sums over head groups and over (batch,
+sequence)), its plain version `ssm_scan_bwd_plain` on the CPU
 (on the card only under `ops.use_plain()`, which runs `ssd_chunked` under
 autograd in place of the Function).  The reference trains by autodiff of its jnp `ssd_chunked` (the Pallas
 kernel has no backward).  It is taken only where autograd needs it, so a
@@ -134,10 +135,25 @@ def work(x, Bm, Cm, dt, A_log, D, chunk: int = 64) -> Tuple[int, int]:
 #: The bf16 gradient kernels' names in the build and in the profiler: the
 #: state chains, the chunks' gradients, the sums.
 BWD_KERNELS = ("ssm_bwd_state_wgmma_kernel", "ssm_bwd_chunk_wgmma_kernel", "ssm_bwd_sum_kernel")
-#: Heads a block of the chunk kernel takes in turn (``csrc/ssm_scan_bwd.cu``,
-#: ``HG``): dB and dC are summed over them in the block, then over the
-#: groups by the sum kernel.
-BWD_HEAD_GROUP = 8
+#: Heads a block of the chunk kernel takes, two consumer warpgroups in turn
+#: (``csrc/ssm_scan_bwd.cu``, ``HB``): dB and dC are summed over them in the
+#: block, then over the groups by the sum kernel.
+BWD_HEAD_GROUP = 16
+#: Chunks between two states the state chains keep (``csrc/ssm_scan_bwd.cu``,
+#: ``R``): the chunk kernel recomputes the others from them.
+BWD_STATE_CHUNKS = 2
+
+
+def bwd_scratch_floats(B: int, S: int, H: int, N: int, chunk: int) -> Tuple[int, int]:
+    """The fp32 scratch of one gradient call (``csrc/ssm_scan_bwd.cu``'s
+    launcher): the kept states, a (64, 64) start state and end gradient for
+    each group of `BWD_STATE_CHUNKS` chunks of each (batch, head); and the
+    sums, dB's and dC's over each head group and each (batch, chunk,
+    head)'s for dA_log and dD."""
+    nc = S // chunk
+    groups = -(-H // BWD_HEAD_GROUP)
+    states = 2 * B * (-(-nc // BWD_STATE_CHUNKS)) * H * _STATE_TILE
+    return states, 2 * B * S * groups * N + 2 * B * nc * H
 
 
 def ssm_scan_bwd_plain(x, Bm, Cm, dt, A_log, D, dy, dstate=None, chunk: int = 64,
@@ -318,14 +334,11 @@ def _launch_bwd(x, Bm, Cm, dt, A_log, D, dy, dstate, chunk: int):
     outs = (dx, dB, dC, ddt, dA_log, dD)
     if x.numel() == 0:
         return tuple(t.zero_() for t in outs)
-    # Scratch: each chunk's start state and end gradient (fp32 64 x 64, as
-    # the kernels' accumulators hold them), dB's and dC's sums over each
-    # head group, and each (batch, chunk, head)'s sums for dA_log and dD.
-    nc = S // chunk
-    groups = -(-H // BWD_HEAD_GROUP)
-    states = torch.empty((2 * B * nc * H * _STATE_TILE,), dtype=torch.float32, device=dev)
-    parts = torch.empty((2 * B * S * groups * N + 2 * B * nc * H,), dtype=torch.float32,
-                        device=dev)
+    # Scratch (`bwd_scratch_floats`): the states every other chunk (fp32
+    # 64 x 64, as the kernels' accumulators hold them) and the sums.
+    n_states, n_parts = bwd_scratch_floats(B, S, H, N, chunk)
+    states = torch.empty((n_states,), dtype=torch.float32, device=dev)
+    parts = torch.empty((n_parts,), dtype=torch.float32, device=dev)
     if dev.type == "meta":
         return outs
     sync = _sync_buffer(_SYNC_BWD, dev, 3 + 2 * B * H)

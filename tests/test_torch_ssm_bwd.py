@@ -195,6 +195,44 @@ def _segments(nc):
     return [min(4, nc - s) for s in range(0, nc, 4)]
 
 
+#: Chunks between two states the chains keep (csrc/ssm_scan_bwd.cu, R).
+KEPT = tscan.BWD_STATE_CHUNKS
+
+
+def _kept_states(up, dec, start, segs, reverse, drop_edge=False):
+    """The states the chains keep, one a group of KEPT chunks: the start
+    state of each group (forward) or the gradient at its end (``reverse``).
+    Each segment of `_segments` sweeps its own chunks from zero in the
+    chain's order, keeping its state after its first group in that order;
+    then combines with its neighbour's inclusive state (``drop_edge``: left
+    out past the first segment), as the look-back does."""
+    nc = len(up)
+    kept = [None] * (-(-nc // KEPT))
+    carry, first = start, (nc if reverse else 0)
+    for k, n in enumerate(reversed(segs) if reverse else segs):
+        if reverse:
+            first -= n
+        chunks = range(first, first + n)
+        order = list(reversed(chunks)) if reverse else list(chunks)
+        n_first = n - KEPT * ((n - 1) // KEPT) if reverse else min(KEPT, n)
+        if drop_edge and k > 0:
+            carry = torch.zeros_like(carry)
+        loc, dseg, mid, dmid = torch.zeros_like(carry), torch.ones_like(dec[0]), None, None
+        for j, c in enumerate(order):
+            loc = loc * dec[c][..., None, None] + up[c]
+            dseg = dseg * dec[c]
+            if j == n_first - 1:
+                mid, dmid = loc, dseg
+        near = (first + n - 1) // KEPT if reverse else first // KEPT
+        kept[near] = carry
+        if n > KEPT:
+            kept[first // KEPT if reverse else first // KEPT + 1] = dmid[..., None, None] * carry + mid
+        carry = dseg[..., None, None] * carry + loc
+        if not reverse:
+            first += n
+    return kept
+
+
 def _tensor_core_scan_bwd(x, Bm, Cm, dt, A_log, D, dy, dstate, chunk, w_cut=_split,
                           drop_edge=False):
     """The bf16 gradient kernels' arithmetic (csrc/ssm_scan_bwd.cu,
@@ -202,11 +240,15 @@ def _tensor_core_scan_bwd(x, Bm, Cm, dt, A_log, D, dy, dstate, chunk, w_cut=_spl
     `ssm_bwd_sum_kernel`) in PyTorch: bf16 inputs exact; C B^T and dy x^T
     exact; every fp32 operand of a product split into bf16 hi + lo (the
     chains' wl x and exp(cum) dy, the chunk pass's S_c and G_c) and the
-    weighted matrices (C B^T) w and (dy x^T) w through ``w_cut``; the
-    state chains by segments of four chunks, each from a zero start then
-    combined with its neighbour's inclusive state (``drop_edge``: the
-    gradient chain's carried state left out at every segment edge); the
-    sums of cum's gradient in fp32.  dx, dB and dC rounded to bf16."""
+    weighted matrices (C B^T) w and (dy x^T) w through ``w_cut``.  The
+    chains keep a state every `KEPT` chunks (`_kept_states`: segments of
+    four chunks, each from a zero start then combined with its neighbour's
+    inclusive state; ``drop_edge``: the gradient chain's carried state left
+    out at every segment edge); the chunk pass recomputes S_c from its
+    group's start over the chunk before it, G_c from its group's end over
+    the chunk after it, by the same split updates.  dx is wl (B G^T), then
+    Wg^T dy and D dy added; dC takes e^cum (dy S) before Wm B.  The sums of
+    cum's gradient in fp32.  dx, dB and dC rounded to bf16."""
     B, S, H, P = x.shape
     N, L = Bm.shape[-1], chunk
     nc = S // L
@@ -222,37 +264,26 @@ def _tensor_core_scan_bwd(x, Bm, Cm, dt, A_log, D, dy, dstate, chunk, w_cut=_spl
     ec, el = torch.exp(cum), torch.exp(cum[:, :, -1:] - cum)
     wl, dec = el * dtc, torch.exp(cum[:, :, -1])
 
-    # The chains' per-chunk updates, their A operands split.
+    # The chains' per-chunk updates, their A operands split; the kept states.
     T_up = torch.einsum("bclhp,bcln->bchpn", _split(wl[..., None] * xc), Bc)
     U_up = torch.einsum("bclhp,bcln->bchpn", _split(ec[..., None] * dyc), Cc)
-    starts, ends = [None] * nc, [None] * nc
-    s_prev, c0 = torch.zeros((B, H, P, N), dtype=f), 0
+    decs = [dec[:, c] for c in range(nc)]
     segs = _segments(nc)
-    for n in segs:                                        # the states, forward
-        s_loc, dseg = torch.zeros_like(s_prev), torch.ones((B, H), dtype=f)
-        for c in range(c0, c0 + n):
-            s_loc = s_loc * dec[:, c, :, None, None] + T_up[:, c]
-            dseg = dseg * dec[:, c]
-        s = s_prev
-        s_prev = dseg[..., None, None] * s_prev + s_loc
-        for c in range(c0, c0 + n):
-            starts[c] = s
-            s = s * dec[:, c, :, None, None] + T_up[:, c]
-        c0 += n
-    g_next = torch.zeros((B, H, P, N), dtype=f) if dstate is None else dstate.float()
-    for k, n in enumerate(reversed(segs)):                # the gradients, in reverse
-        c0 = nc - sum(segs[len(segs) - k:]) - n
-        if drop_edge and k > 0:
-            g_next = torch.zeros_like(g_next)
-        g_loc, dseg = torch.zeros_like(g_next), torch.ones((B, H), dtype=f)
-        for c in reversed(range(c0, c0 + n)):
-            g_loc = g_loc * dec[:, c, :, None, None] + U_up[:, c]
-            dseg = dseg * dec[:, c]
-        g = g_next
-        g_next = dseg[..., None, None] * g_next + g_loc
-        for c in reversed(range(c0, c0 + n)):
-            ends[c] = g
-            g = g * dec[:, c, :, None, None] + U_up[:, c]
+    zero = torch.zeros((B, H, P, N), dtype=f)
+    kept_s = _kept_states([T_up[:, c] for c in range(nc)], decs, zero, segs, False)
+    kept_g = _kept_states([U_up[:, c] for c in range(nc)], decs,
+                          zero if dstate is None else dstate.float(), segs, True, drop_edge)
+    # Each chunk's states, recomputed from its group's over the group's other
+    # chunk.
+    starts, ends = [], []
+    for c in range(nc):
+        s_c, g_c = kept_s[c // KEPT], kept_g[c // KEPT]
+        if c % KEPT:
+            s_c = s_c * decs[c - 1][..., None, None] + T_up[:, c - 1]
+        elif c + 1 < nc:
+            g_c = g_c * decs[c + 1][..., None, None] + U_up[:, c + 1]
+        starts.append(s_c)
+        ends.append(g_c)
     S_c, G_c = torch.stack(starts, 1), torch.stack(ends, 1)
 
     Gm = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
@@ -264,7 +295,7 @@ def _tensor_core_scan_bwd(x, Bm, Cm, dt, A_log, D, dy, dstate, chunk, w_cut=_spl
     Y = torch.einsum("bcjhp,bchpn->bcjhn", xc, _split(G_c))
     dx = wl[..., None] * V + torch.einsum("bcijh,bcihp->bcjhp", Wg, dyc) \
         + D.float()[:, None] * dyc
-    dC = torch.einsum("bcijh,bcjn->bcin", Wm, Bc) + torch.einsum("bcih,bcihn->bcin", ec, Uy)
+    dC = torch.einsum("bcih,bcihn->bcin", ec, Uy) + torch.einsum("bcijh,bcjn->bcin", Wm, Bc)
     dB = torch.einsum("bcijh,bcin->bcjn", Wm, Cc) + torch.einsum("bcjh,bcjhn->bcjn", wl, Y)
     col = R.sum(2)
     row = (R * dtc[:, :, None]).sum(3)
@@ -304,8 +335,10 @@ def _over_tol(got, want):
 
 
 #: The emulation's cases: a few heads at zamba2-7b's P, N and chunk, three
-#: segments; and a small ragged one.
-TC_CASES = [(1, 640, 4, 64, 64, 64), (2, 144, 3, 8, 16, 16)]
+#: segments; a small ragged one; five chunks, a count the kept states'
+#: groups of two do not divide (segments of four and one); one chunk.
+TC_CASES = [(1, 640, 4, 64, 64, 64), (2, 144, 3, 8, 16, 16), (1, 320, 3, 32, 16, 64),
+            (2, 64, 2, 16, 8, 64)]
 
 
 @pytest.mark.parametrize("case", TC_CASES)
@@ -419,3 +452,63 @@ def test_the_launcher_and_the_kernels_names():
             assert not any(a in b or b in a for a in mine for b in theirs), other
     assert dryrun.LAUNCHES_A_SCOPE["ssm_scan_bwd"] == 3
     assert "ssm_scan_bwd" in dryrun._wrapper_launches()
+
+
+# ------------------------------------------------ the kept states, scratch --
+@pytest.mark.parametrize("nc", [1, 2, 5, 7, 9])
+def test_the_kept_states_give_every_chunks_states(nc):
+    """The states the chains keep every `KEPT` chunks (`_kept_states`),
+    with the chunk pass's one update over the group's other chunk, are the
+    chunks' start states and end gradients of the sequential chains, in
+    float64: a count of chunks that groups of two do not divide (5, 7, 9),
+    segments of one, two and three chunks, one chunk."""
+    rng = np.random.default_rng(nc)
+    B, H, P, N = 2, 3, 4, 5
+    t = lambda *s: torch.from_numpy(rng.standard_normal(s))
+    up = [t(B, H, P, N) for _ in range(nc)]
+    dec = [torch.from_numpy(rng.uniform(0.5, 1.0, (B, H))) for _ in range(nc)]
+    final = t(B, H, P, N)
+    state, starts = torch.zeros_like(final), []
+    for c in range(nc):
+        starts.append(state)
+        state = state * dec[c][..., None, None] + up[c]
+    grad, ends = final, [None] * nc
+    for c in reversed(range(nc)):
+        ends[c] = grad
+        grad = grad * dec[c][..., None, None] + up[c]
+    segs = _segments(nc)
+    kept_s = _kept_states(up, dec, torch.zeros_like(final), segs, False)
+    kept_g = _kept_states(up, dec, final, segs, True)
+    assert len(kept_s) == len(kept_g) == -(-nc // KEPT)
+    for c in range(nc):
+        s_c, g_c = kept_s[c // KEPT], kept_g[c // KEPT]
+        if c % KEPT:
+            s_c = s_c * dec[c - 1][..., None, None] + up[c - 1]
+        elif c + 1 < nc:
+            g_c = g_c * dec[c + 1][..., None, None] + up[c + 1]
+        torch.testing.assert_close(s_c, starts[c], rtol=1e-12, atol=1e-12)
+        torch.testing.assert_close(g_c, ends[c], rtol=1e-12, atol=1e-12)
+
+
+def test_the_scratch_at_zamba2s_training_shape():
+    """The wrapper's fp32 scratch (`bwd_scratch_floats`) at zamba2-7b's
+    training shape: the kept states, a start state and an end gradient every
+    two chunks, 2 x 117.4 MB (every chunk's were 2 x 234.9 MB); the sums of
+    dB and dC over 7 head groups of 16 and of dA_log and dD per (b, chunk,
+    head), 29.5 MB."""
+    B, S, H, P, N, L = 2, 4096, 112, 64, 64, 64
+    states, parts = tscan.bwd_scratch_floats(B, S, H, N, L)
+    assert states * 4 == 2 * 117_440_512 <= 2 * 118e6
+    assert states * 2 == 2 * B * (S // L) * H * 64 * 64          # every chunk's, halved
+    assert parts == 2 * B * S * 7 * N + 2 * B * (S // L) * H
+    assert tscan.bwd_scratch_floats(1, 320, 3, 16, 64)[0] == 2 * 3 * 3 * 64 * 64   # 5 chunks: 3 groups
+
+
+def test_the_sources_constants_are_the_wrappers():
+    """The kernels' chunks between kept states, heads a chunk block and
+    chunks a chain segment are the wrapper's (the scratch follows them)."""
+    text = (_build.CSRC / "ssm_scan_bwd.cu").read_text()
+    const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+    assert const("R") == tscan.BWD_STATE_CHUNKS == KEPT
+    assert const("HB") == tscan.BWD_HEAD_GROUP
+    assert const("SEG") == tscan.SEGMENT_CHUNKS
